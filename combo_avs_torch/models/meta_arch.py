@@ -1,0 +1,116 @@
+"""MaskFormer meta-architecture (COMBO-R50, S4 late-fusion configuration).
+
+Port of `combo_avs_tpu/models/meta_arch.py`: pixel mean/std normalization,
+frozen VGGish audio embedding, two ResNet towers (visual and the Siam-Encoder
+over the Maskige) joined by per-stage SE gates, and the MaskFormer head with
+late MHA-B fusion. Keeps the JAX package's layouts at the public surface:
+`forward(images [B, T, H, W, 3], audio_log_mel [B, T, 96, 64], pre_masks
+[B, T, H, W, 3])` -> `pred_logits [B*T, Q, C+1]`, `pred_masks [B*T, Q, H/4,
+W/4]` and the per-layer `aux_outputs`. Internally everything is NCHW.
+
+`state_dict()` keys are the reference `.pth` names that
+`combo_avs_tpu/train/checkpoint.py::convert_combo_checkpoint` reads.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from combo_avs_torch.models.head import MaskFormerHead
+from combo_avs_torch.models.layers import SqueezeExcite
+from combo_avs_torch.models.resnet import ResNet
+from combo_avs_torch.models.vggish import VGGish
+
+PIXEL_MEAN = (123.675, 116.280, 103.530)
+PIXEL_STD = (58.395, 57.120, 57.375)
+
+
+def _build_backbone(name: str) -> ResNet:
+    if name == "build_resnet_backbone":
+        return ResNet(depth=50)
+    if name == "tiny_resnet":
+        # one bottleneck per stage, 8x narrower: the tiny test backbone
+        return ResNet(depth=10, stem_out_channels=8, res2_out_channels=32)
+    raise ValueError(f"backbone {name!r} is not ported yet")
+
+
+class MaskFormer(nn.Module):
+    def __init__(
+        self,
+        backbone_name: str = "build_resnet_backbone",
+        num_classes: int = 2,
+        num_queries: int = 100,
+        hidden_dim: int = 256,
+        nheads: int = 8,
+        dim_feedforward: int = 2048,
+        dec_layers: int = 9,  # = cfg DEC_LAYERS - 1
+        enc_layers: int = 6,
+        mask_dim: int = 256,
+        conv_dim: int = 256,
+        audio_dim: int = 128,
+        audio_out_dim: int = 256,
+        pre_sam_dim: Sequence[int] = (256, 512, 1024, 2048),
+        vggish_width: float = 1.0,
+        device: Optional[torch.device | str] = None,
+    ):
+        super().__init__()
+        with torch.device(device if device is not None else "cpu"):
+            self.backbone = _build_backbone(backbone_name)
+            self.pre_sam_backbone = _build_backbone(backbone_name)
+            self.audio_backbone = VGGish(width_mult=vggish_width)
+            self.scale_factor_module = nn.ModuleList(SqueezeExcite(d) for d in pre_sam_dim)
+            self.sem_seg_head = MaskFormerHead(
+                dict(zip(("res2", "res3", "res4", "res5"), pre_sam_dim)),
+                num_classes, conv_dim=conv_dim, mask_dim=mask_dim, enc_layers=enc_layers,
+                hidden_dim=hidden_dim, num_queries=num_queries, nheads=nheads,
+                dim_feedforward=dim_feedforward, dec_layers=dec_layers, audio_dim=audio_dim,
+                audio_out_dim=audio_out_dim)
+
+    def _normalize(self, x: torch.Tensor) -> torch.Tensor:
+        """[N, H, W, 3] raw RGB -> normalized [N, 3, H, W] in x's float type
+        (uint8 becomes float32)."""
+        if not x.is_floating_point():
+            x = x.float()
+        mean = torch.tensor(PIXEL_MEAN, dtype=x.dtype, device=x.device)
+        std = torch.tensor(PIXEL_STD, dtype=x.dtype, device=x.device)
+        return ((x - mean) / std).permute(0, 3, 1, 2).contiguous()
+
+    def forward(
+        self,
+        images: torch.Tensor,  # [B, T, H, W, 3] raw RGB (0-255)
+        audio_log_mel: torch.Tensor,  # [B, T, 96, 64]
+        pre_masks: torch.Tensor,  # [B, T, H, W, 3] Maskige RGB
+    ) -> Dict[str, object]:
+        B, T, H, W, _ = images.shape
+        frames = self._normalize(images.reshape(B * T, H, W, 3))
+        # the audio tower is frozen; [B*T, 1, 128]
+        audio_feature = self.audio_backbone(audio_log_mel.reshape(B * T, 1, 96, 64))[:, None, :]
+
+        features = self.backbone(frames)
+        pre_feats = self.pre_sam_backbone(self._normalize(pre_masks.reshape(B * T, H, W, 3)))
+        for i, key in enumerate(sorted(features)):
+            gate = self.scale_factor_module[i](pre_feats[key])
+            features[key] = features[key] + gate * pre_feats[key]
+        return self.sem_seg_head(features, audio_feature)
+
+
+def semantic_inference(
+    mask_cls: torch.Tensor,  # [N, Q, C+1]
+    mask_pred: torch.Tensor,  # [N, Q, h, w]
+    out_size: Optional[Tuple[int, int]] = None,
+) -> torch.Tensor:
+    """softmax(cls)[..., :-1] x sigmoid(mask) semantic maps, optionally
+    upsampled; returns [N, C, H, W] float32. The upsampled [N, Q, H, W] masks
+    stay in the input type (bf16 on the bf16 path); the Q-contraction is
+    float32."""
+    cls = mask_cls.float().softmax(-1)[..., :-1]
+    if out_size is not None:
+        mask_pred = F.interpolate(mask_pred, size=tuple(out_size), mode="bilinear",
+                                  align_corners=False, antialias=False)
+    N, Q, H, W = mask_pred.shape
+    sig = mask_pred.sigmoid().reshape(N, Q, H * W).float()
+    return torch.bmm(cls.transpose(1, 2), sig).reshape(N, -1, H, W)

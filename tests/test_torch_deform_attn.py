@@ -1,0 +1,125 @@
+"""Deformable attention in the PyTorch port: the plain version against the
+JAX composition and the Pallas kernel (interpret mode), and the device
+dispatch. The hand-written kernel K1 is checked on the card by
+tests/test_torch_k1_card.py.
+
+Inputs are made with numpy from a seed and handed to both frameworks."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from combo_avs_tpu.ops.deform_attn import ms_deform_attn as jax_ms_deform_attn
+from combo_avs_tpu.ops.deform_attn_pallas import _forward_hfuse
+from combo_avs_torch.ops import deform_attn_cuda
+from combo_avs_torch.ops.deform_attn import ms_deform_attn_plain
+
+SHAPES = ((4, 6), (2, 3), (5, 5))
+B, M, D, Lq, P = 2, 2, 8, 37, 3
+S = sum(h * w for h, w in SHAPES)
+
+
+def _inputs(seed=0, shapes=SHAPES, b=B, m=M, d=D, lq=Lq, p=P):
+    """Locations in [-0.2, 1.2] (corners outside the levels) with a third of
+    them on exact pixel centres (integer sample coordinates)."""
+    rng = np.random.RandomState(seed)
+    s = sum(h * w for h, w in shapes)
+    value = rng.randn(b, s, m, d).astype(np.float32)
+    loc = rng.uniform(-0.2, 1.2, (b, lq, m, len(shapes), p, 2)).astype(np.float32)
+    for lvl, (h, w) in enumerate(shapes):
+        on_pixel = rng.rand(b, lq, m, p) < 0.33
+        loc[:, :, :, lvl, :, 0] = np.where(on_pixel, (rng.randint(0, w, on_pixel.shape) + 0.5) / w,
+                                           loc[:, :, :, lvl, :, 0])
+        loc[:, :, :, lvl, :, 1] = np.where(on_pixel, (rng.randint(0, h, on_pixel.shape) + 0.5) / h,
+                                           loc[:, :, :, lvl, :, 1])
+    wts = rng.rand(b, lq, m, len(shapes), p).astype(np.float32)
+    wts /= wts.reshape(b, lq, m, -1).sum(-1)[..., None, None]
+    return value, loc, wts
+
+
+def _plain(value, loc, wts, shapes=SHAPES):
+    t = [torch.from_numpy(np.asarray(a)) for a in (value, loc, wts)]
+    return ms_deform_attn_plain(t[0], shapes, t[1], t[2]).numpy()
+
+
+def test_plain_matches_jax_fp32():
+    # same fp32 products, summed in another order: 1e-5
+    value, loc, wts = _inputs(0)
+    want = np.asarray(jax_ms_deform_attn(value, SHAPES, loc, wts))
+    got = _plain(value, loc, wts)
+    assert got.shape == want.shape == (B, Lq, M * D) and got.dtype == np.float32
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+
+
+def test_plain_matches_jax_fp64():
+    # the same algorithm in float64: agreement to rounding, 1e-10
+    value, loc, wts = (a.astype(np.float64) for a in _inputs(1))
+    with jax.enable_x64(True):
+        want = np.asarray(jax_ms_deform_attn(jnp.asarray(value), SHAPES, jnp.asarray(loc),
+                                             jnp.asarray(wts)))
+    got = _plain(value, loc, wts)
+    assert got.dtype == want.dtype == np.float64
+    np.testing.assert_allclose(got, want, atol=1e-10, rtol=1e-10)
+
+
+def test_plain_matches_pallas_hfuse_interpret():
+    # the TPU kernel's tent-matrix form at HIGHEST precision: 1e-5
+    value, loc, wts = _inputs(2)
+    want = np.asarray(_forward_hfuse(value, SHAPES, loc, wts, interpret=True))
+    np.testing.assert_allclose(_plain(value, loc, wts), want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("fill", [-0.6, 1.6])
+def test_out_of_level_is_exact_zero(fill):
+    # x*W - 0.5 and y*H - 0.5 lie beyond [-1, W] for every level: no corner is inside
+    value, loc, wts = _inputs(3)
+    out = _plain(value, np.full_like(loc, fill), wts)
+    np.testing.assert_array_equal(out, 0.0)
+
+
+def test_integer_coordinates_read_exact_pixels():
+    # at pixel centres bilinear sampling is a plain read: out = sum_l,p w * value[pixel]
+    rng = np.random.RandomState(4)
+    value, _, wts = _inputs(4)
+    L = len(SHAPES)
+    ix = np.stack([rng.randint(0, w, (B, Lq, M, P)) for _, w in SHAPES], 3)
+    iy = np.stack([rng.randint(0, h, (B, Lq, M, P)) for h, _ in SHAPES], 3)
+    wh = np.array([[w, h] for h, w in SHAPES], np.float32)
+    loc = (np.stack([ix, iy], -1) + 0.5) / wh[None, None, None, :, None, :]
+    starts = np.cumsum([0] + [h * w for h, w in SHAPES])[:-1]
+    want = np.zeros((B, Lq, M, D), np.float64)
+    for b in range(B):
+        for m in range(M):
+            for lvl in range(L):
+                row = starts[lvl] + iy[b, :, m, lvl] * SHAPES[lvl][1] + ix[b, :, m, lvl]  # [Lq, P]
+                want[b, :, m] += np.einsum("qp,qpd->qd", wts[b, :, m, lvl], value[b, row, m])
+    np.testing.assert_allclose(_plain(value, loc.astype(np.float32), wts),
+                               want.reshape(B, Lq, M * D), atol=1e-5, rtol=1e-5)
+
+
+def test_bf16_value_matches_jax():
+    # bf16 value, fp32 locations/weights, fp32 accumulation, one bf16 rounding of
+    # the output on both sides: at most one bf16 ulp apart (2^-8 relative)
+    value, loc, wts = _inputs(5)
+    v16 = torch.from_numpy(value).to(torch.bfloat16)
+    got = ms_deform_attn_plain(v16, SHAPES, torch.from_numpy(loc), torch.from_numpy(wts))
+    assert got.dtype == torch.bfloat16
+    want = np.asarray(jax_ms_deform_attn(jnp.asarray(value, jnp.bfloat16), SHAPES, loc, wts)
+                      .astype(jnp.float32))
+    np.testing.assert_allclose(got.float().numpy(), want, atol=1e-2, rtol=2**-8)
+
+
+def test_cpu_dispatch_takes_plain_path():
+    value, loc, wts = (torch.from_numpy(a) for a in _inputs(6))
+    before = deform_attn_cuda.launches
+    out = deform_attn_cuda.ms_deform_attn(value, SHAPES, loc, wts)
+    assert deform_attn_cuda.launches == before
+    torch.testing.assert_close(out, ms_deform_attn_plain(value, SHAPES, loc, wts), rtol=0, atol=0)
+
+
+def test_kernel_wrapper_refuses_cpu_tensors():
+    value, loc, wts = (torch.from_numpy(a) for a in _inputs(7))
+    with pytest.raises(ValueError, match="CUDA"):
+        deform_attn_cuda.ms_deform_attn_cuda(value, SHAPES, loc, wts)
