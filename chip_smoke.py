@@ -1,20 +1,29 @@
-"""Drive the PyTorch port's main path (COMBO-R50 S4 inference) once on one
-NVIDIA GPU and check it.
+"""Drive the PyTorch port's two paths, COMBO-R50 S4 inference and COMBO-R50
+S4 training, on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
 Phases, each printing what it found; any failure raises, so the script exits
 non-zero and never prints its last line:
   1. environment: torch/CUDA versions, the card, `nvidia-smi` name and power limit;
-  2. build the deformable-attention kernel (K1) from `combo_avs_torch/csrc`;
-  3. K1 against its plain PyTorch version on the card at the main-path shape
-     (fp32 and bf16 value) and at a ragged shape, with CUDA-event timings;
+  2. build every kernel from `combo_avs_torch/csrc` (one nvcc per source, in parallel);
+  3. each kernel against its plain PyTorch version on the card, at the shapes
+     the two paths give it and at a ragged shape, with CUDA-event timings, the
+     time of one PyTorch call computing the same function where there is one,
+     and the least time the card could take (bound):
+       K1 deformable-attention forward (fp32 and bf16 value),
+       K2 its backward, K3/K5 the point-sample forward, K4 its backward;
   4. full-width COMBO-R50 S4 (`MaskFormer()` defaults) from a seeded init on
      the card, `make_eval_step` on 3 batches of 4 videos x 5 frames x 224^2 in
      fp32 and in bf16; K1 must be launched 6 times per forward;
-  5. the same weights on the card (K1, TF32 off) against the CPU (plain path)
-     on one 224^2 frame;
-  6. a JSON line of per-kernel results, then the final JSON status line.
+  5. `make_train_step` on the same model, 1 warm-up and 3 timed steps of
+     8 videos x 5 frames x 224^2, K = 3 target slots, fp32, S4 frame weights:
+     finite losses, the frozen tower and FrozenBN unchanged, the decoder
+     changed, and each kernel launched as often as the step implies;
+  6. the same weights on the card (TF32 off) against the CPU (plain path):
+     the inference forward on one 224^2 frame, and the training losses and
+     gradients on 1 video x 5 frames x 128^2 with the same injected draws;
+  7. a JSON line of per-kernel results, then the final JSON status line.
 Without a CUDA device it exits non-zero at once.
 """
 
@@ -42,8 +51,50 @@ K1_TOL_BF16 = 8e-3  # max |kernel - plain| / max |plain|
 # card vs CPU, fp32 with TF32 off: another summation order through two R50
 # towers, 6 encoder and 9 decoder layers (tests/test_e2e_parity.py's bound)
 SLICE_ATOL, SLICE_RTOL = 5e-3, 1e-3
-KERNEL_SOURCE = "combo_avs_torch/csrc/ms_deform_attn_fwd.cu"
-KERNEL_REPLACES = "combo_avs_tpu/ops/deform_attn_pallas.py:408"
+
+# training shapes: the S4 recipe's batch (IMS_PER_BATCH 8) of 5-frame videos,
+# K = 3 target slots (the first two valid, as bench.py's bench_train), 100
+# queries, masks at 56^2, 12544 PointRend points from 3 x 12544 candidates
+TRAIN_B, TRAIN_K = 8, 3
+TRAIN_STEPS = 3  # timed, after one warm-up step
+TRAIN_N = TRAIN_B * T  # frames
+TRAIN_M = TRAIN_N * TRAIN_K  # matched masks
+MASK_HW, GT_HW, NUM_POINTS, NUM_QUERIES = SIZE // 4, SIZE, 12544, 100
+DEC_OUTPUTS = 10  # the final prediction and 9 aux ones
+# kernel launches per training step: the 6 encoder layers once forward and
+# once backward; per decoder output the matcher samples the predicted (K5
+# shape) and the target masks, the criterion the 3x oversampled candidates,
+# the point labels and the point logits (5 forward calls), and the backward
+# takes the point logits' image gradient once; no point ever needs a gradient
+TRAIN_LAUNCHES = {"k1": 6, "k2": 6, "k3": 5 * DEC_OUTPUTS, "k4_dimg": DEC_OUTPUTS, "k4_dxy": 0}
+# K2, K4: fp32 atomics add in a run-dependent order, K3/K5 sum four products
+# in another order than the plain version: 1e-5 of max |plain|
+TOL_FP32 = 1e-5
+# training, card vs CPU (1 video x 5 frames x 128^2, TF32 off, the same
+# weights and draws, exact top-k on both): each loss within 1e-3 relative;
+# gradients by the calibrated bounds of tests/test_grad_oracle.py for two
+# implementations whose activations differ by float32 noise (per leaf rel-L2
+# 0.15, median over leaves 0.03, whole gradient 0.075). A few leaves have an
+# exactly zero gradient (a bias followed by a GroupNorm; the fusion's query
+# bias under a softmax that one shift moves alike), where both sides hold
+# rounding noise: a leaf's error is taken relative to at least 1e-6 of the
+# whole gradient's norm
+TRAIN_VS_CPU_SIZE = 128
+LOSS_RTOL_CPU, GRAD_RL2_LEAF, GRAD_RL2_MEDIAN, GRAD_RL2_ALL = 1e-3, 0.15, 0.03, 0.075
+GRAD_FLOOR = 1e-6
+
+# the card's published peaks (NVIDIA H100 SXM data sheet, at the 700 W limit):
+# HBM bandwidth and float32 outside the tensor cores
+PEAK_BYTES_PER_S, PEAK_FP32_PER_S = 3.35e12, 67e12
+
+REPLACES = {
+    "k1": "combo_avs_tpu/ops/deform_attn_pallas.py:408",
+    "k2": "combo_avs_tpu/ops/deform_attn_pallas.py:488",
+    "k3": "combo_avs_tpu/ops/point_sample_pallas.py:98",
+    "k5": "combo_avs_tpu/ops/point_sample_pallas.py:371",
+    "k4": "combo_avs_tpu/ops/point_sample_pallas.py:112",
+    "k4_dxy": "combo_avs_tpu/ops/point_sample_pallas.py:131",
+}
 
 
 def log(*args):
@@ -65,13 +116,28 @@ def phase_env() -> str:
 
 
 def phase_build() -> None:
-    from combo_avs_torch.ops import _build
-    from combo_avs_torch.ops.deform_attn_cuda import SOURCE
+    from combo_avs_torch.ops import _build, deform_attn_cuda, point_sample_cuda
 
+    sources = [deform_attn_cuda.SOURCE, deform_attn_cuda.BWD_SOURCE, *point_sample_cuda.SOURCES]
     t0 = time.perf_counter()
-    _build.load(SOURCE)
+    _build.load_all(sources)
     dt = time.perf_counter() - t0
-    log(f"[build] {SOURCE} -> {_build.library_path(SOURCE)} in {dt:.2f} s")
+    log(f"[build] {len(sources)} sources in {dt:.2f} s: "
+        + ", ".join(f"{s} -> {_build.library_path(s)}" for s in sources))
+
+
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time the card could take: bytes moved over the HBM rate or
+    float32 operations over the peak rate, whichever is larger."""
+    by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    by_ops = flops / PEAK_FP32_PER_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def k1_inputs(Bn, M, D, P, levels, Lq, dtype, device, seed):
@@ -96,6 +162,40 @@ def k1_inputs(Bn, M, D, P, levels, Lq, dtype, device, seed):
     return to(value).to(dtype), to(loc), to(w)
 
 
+def point_inputs(N, H, W, C, P, device, seed):
+    """feat [N, H, W, C] and points [N, P, 2]: uniform in [-0.1, 1.1] (corners
+    outside the image), a quarter on exact pixel centres."""
+    rng = np.random.RandomState(seed)
+    feat = rng.randn(N, H, W, C).astype(np.float32)
+    pts = rng.uniform(-0.1, 1.1, (N, P, 2)).astype(np.float32)
+    sel = rng.rand(N, P) < 0.25
+    pts[..., 0] = np.where(sel, (rng.randint(0, W, sel.shape) + 0.5) / W, pts[..., 0])
+    pts[..., 1] = np.where(sel, (rng.randint(0, H, sel.shape) + 0.5) / H, pts[..., 1])
+    return torch.from_numpy(feat).to(device), torch.from_numpy(pts).to(device)
+
+
+def corners_inside(x: torch.Tensor, y: torch.Tensor, H: int, W: int) -> int:
+    """How many of the four bilinear corners of the pixel coordinates (x, y)
+    lie inside an H x W grid: the corners a kernel reads for this data."""
+    x0, y0 = torch.floor(x), torch.floor(y)
+    n = 0
+    for dx in (0, 1):
+        for dy in (0, 1):
+            xi, yi = x0 + dx, y0 + dy
+            n += int(((xi >= 0) & (xi < W) & (yi >= 0) & (yi < H)).sum())
+    return n
+
+
+def deform_corners(levels, loc: torch.Tensor) -> int:
+    """In-level corners of every sampling point of locations [B, Lq, M, L, P, 2]."""
+    return sum(corners_inside(loc[:, :, :, l, :, 0] * W - 0.5, loc[:, :, :, l, :, 1] * H - 0.5,
+                              H, W) for l, (H, W) in enumerate(levels))
+
+
+def point_corners(points: torch.Tensor, H: int, W: int) -> int:
+    return corners_inside(points[..., 0] * W - 0.5, points[..., 1] * H - 0.5, H, W)
+
+
 def cuda_time_ms(fn, iters=20, warmup=3) -> float:
     """Median over `iters` of one call each, timed with CUDA events."""
     for _ in range(warmup):
@@ -112,11 +212,26 @@ def cuda_time_ms(fn, iters=20, warmup=3) -> float:
     return float(np.median(times))
 
 
-def phase_k1() -> dict:
+def compare(tag: str, got: torch.Tensor, want: torch.Tensor, tol: float) -> dict:
+    """Max abs error and max abs error over max |want|; raises above `tol`."""
+    torch.cuda.synchronize()
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{tag}: {tuple(got.shape)}/{got.dtype} vs "
+                             f"{tuple(want.shape)}/{want.dtype}")
+    max_abs = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    rel = max_abs / scale if scale > 0 else max_abs
+    log(f"{tag}: {tuple(got.shape)} max_abs_err {max_abs:.3e} max_rel_err {rel:.3e} "
+        f"(vs max|plain| {scale:.4g}; tol {tol:g})")
+    if not np.isfinite(max_abs) or rel > tol:
+        raise AssertionError(f"{tag}: kernel disagrees with plain: rel {rel:.3e} > {tol:g}")
+    return {"max_abs_err": max_abs, "max_rel_err": rel}
+
+
+def phase_k1(dev: torch.device) -> dict:
     from combo_avs_torch.ops import deform_attn_cuda as k1
     from combo_avs_torch.ops.deform_attn import ms_deform_attn_plain
 
-    dev = torch.device("cuda", 0)
     Lq = sum(h * w for h, w in K1_LEVELS)  # encoder queries = all tokens
     result = {}
     cases = [
@@ -134,26 +249,142 @@ def phase_k1() -> dict:
                                       dtype, dev, seed=len(name))
             got = k1.ms_deform_attn_cuda(value, levels, loc, w)
             want = ms_deform_attn_plain(value, levels, loc, w)
-            torch.cuda.synchronize()
-            if got.shape != want.shape or got.dtype != want.dtype:
-                raise AssertionError(f"[k1] {name}: {got.shape}/{got.dtype} vs "
-                                     f"{want.shape}/{want.dtype}")
-            diff = (got.float() - want.float()).abs()
-            max_abs = float(diff.max())
-            scale = float(want.float().abs().max())
-            rel = max_abs / scale
-            line = (f"[k1] {name}: out {tuple(got.shape)} max_abs_err {max_abs:.3e} "
-                    f"max_rel_err {rel:.3e} (vs max|plain| {scale:.3f}; tol {tol:g})")
-            if levels != K1_LEVELS:
-                log(line)
-            else:
+            err = compare(f"[k1] {name}", got, want, tol)
+            if levels == K1_LEVELS:
                 ms = cuda_time_ms(lambda: k1.ms_deform_attn_cuda(value, levels, loc, w))
                 plain_ms = cuda_time_ms(lambda: ms_deform_attn_plain(value, levels, loc, w))
-                log(f"{line} | K1 {ms:.4f} ms, plain {plain_ms:.4f} ms (median of 20)")
-                result[name] = dict(max_abs_err=max_abs, max_rel_err=rel, ms=ms, plain_ms=plain_ms)
-            if not np.isfinite(max_abs) or rel > tol:
-                raise AssertionError(f"[k1] {name}: kernel disagrees with plain: rel {rel:.3e} > {tol:g}")
+                # one FMA per in-level corner and channel
+                bd = bound(nbytes(value, loc, w, got),
+                           2 * shp["D"] * deform_corners(levels, loc))
+                log(f"[k1] {name}: K1 {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                    f"{bd['bound_ms']:.4f} ms by {bd['bound_by']} (median of 20)")
+                result[name] = dict(err, ms=ms, plain_ms=plain_ms, **bd)
     return result
+
+
+def phase_k2(dev: torch.device) -> dict:
+    """K2 against autograd of the plain forward, at the training shape (40
+    frames) and a ragged one."""
+    from combo_avs_torch.ops import deform_attn_cuda as k
+    from combo_avs_torch.ops.deform_attn import ms_deform_attn_plain
+
+    Lq = sum(h * w for h, w in K1_LEVELS)
+    result = {}
+    cases = [("train", K1_LEVELS, dict(K1_SHAPE, B=TRAIN_N), Lq),
+             ("ragged", ((3, 5), (6, 10)), dict(B=3, M=3, D=16, P=4), 37)]
+    for name, levels, shp, lq in cases:
+        value, loc, w = k1_inputs(shp["B"], shp["M"], shp["D"], shp["P"], levels, lq,
+                                  torch.float32, dev, seed=10 + len(name))
+        g = torch.randn((shp["B"], lq, shp["M"] * shp["D"]), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(len(name)))
+        got = k.ms_deform_attn_bwd_cuda(value, levels, loc, w, g)
+        leaves = [t.clone().requires_grad_() for t in (value, loc, w)]
+        out = ms_deform_attn_plain(leaves[0], levels, leaves[1], leaves[2])
+        want = torch.autograd.grad(out, leaves, g, retain_graph=True)
+        errs = [compare(f"[k2] {name} d{n}", a, b, TOL_FP32)
+                for n, a, b in zip(("value", "loc", "weights"), got, want)]
+        if name == "train":
+            ms = cuda_time_ms(lambda: k.ms_deform_attn_bwd_cuda(value, levels, loc, w, g))
+            plain_ms = cuda_time_ms(
+                lambda: torch.autograd.grad(out, leaves, g, retain_graph=True))
+            # per in-level corner and channel: <g, v>, three FMAs into the
+            # weight and the two coordinate sums, the dvalue term a*w*g and its add
+            bd = bound(nbytes(value, loc, w, g, *got),
+                       10 * shp["D"] * deform_corners(levels, loc))
+            log(f"[k2] {name}: K2 {ms:.4f} ms, plain (autograd backward) {plain_ms:.4f} ms, "
+                f"bound {bd['bound_ms']:.4f} ms by {bd['bound_by']} (median of 20)")
+            result = dict(max_abs_err=max(e["max_abs_err"] for e in errs),
+                          max_rel_err=max(e["max_rel_err"] for e in errs),
+                          ms=ms, plain_ms=plain_ms, **bd)
+        del out, leaves
+    return result
+
+
+def _grid(points: torch.Tensor) -> torch.Tensor:
+    """[N, P, 2] points in [0, 1] -> F.grid_sample's [N, P, 1, 2] grid in [-1, 1]."""
+    return (2.0 * points - 1.0)[:, :, None, :].contiguous()
+
+
+def phase_point_sample(dev: torch.device) -> dict:
+    """K3/K5 (forward) and K4 (image and point gradients) against the plain
+    version and its autograd, at every training shape, with F.grid_sample
+    (and its backward) as the library yardstick."""
+    import torch.nn.functional as F
+
+    from combo_avs_torch.ops import point_sample_cuda as k
+    from combo_avs_torch.ops.grid_sample import point_sample_plain
+
+    M, N, h, H, P = TRAIN_M, TRAIN_N, MASK_HW, GT_HW, NUM_POINTS
+    fwd_cases = [  # name, feat [N, H, W, C], points
+        ("k3_oversample", (M, h, h, 1), 3 * P),  # criterion: 3x candidates on the logits
+        ("k3_point_logits", (M, h, h, 1), P),  # criterion: the differentiable logits
+        ("k3_point_labels", (M, H, H, 1), P),  # criterion: the target masks
+        ("k3_matcher_targets", (N, H, H, TRAIN_K), P),  # matcher: the target masks
+        ("k5_matcher_preds", (N, h, h, NUM_QUERIES), P),  # matcher: 100 masks, shared points
+        ("ragged", (3, 7, 5, 33), 101),
+    ]
+    shapes = []
+    with torch.inference_mode():
+        for i, (name, (n, hh, ww, c), p) in enumerate(fwd_cases):
+            feat, pts = point_inputs(n, hh, ww, c, p, dev, seed=20 + i)
+            got = k.point_sample_fwd_cuda(feat, pts)
+            err = compare(f"[k3/k5] {name}", got, point_sample_plain(feat, pts), TOL_FP32)
+            if name == "ragged":
+                continue
+            nchw, grid = feat.permute(0, 3, 1, 2).contiguous(), _grid(pts)
+            ms = cuda_time_ms(lambda: k.point_sample_fwd_cuda(feat, pts))
+            plain_ms = cuda_time_ms(lambda: point_sample_plain(feat, pts))
+            lib_ms = cuda_time_ms(lambda: F.grid_sample(nchw, grid, mode="bilinear",
+                                                        padding_mode="zeros",
+                                                        align_corners=False))
+            # one FMA per in-image corner and channel
+            bd = bound(nbytes(feat, pts, got), 2 * c * point_corners(pts, hh, ww))
+            log(f"[k3/k5] {name}: [{n},{hh},{ww},{c}] at {p} points: kernel {ms:.4f} ms, "
+                f"plain {plain_ms:.4f} ms, F.grid_sample {lib_ms:.4f} ms, bound "
+                f"{bd['bound_ms']:.4f} ms by {bd['bound_by']} (median of 20)")
+            shapes.append(dict(name=name, shape=[n, hh, ww, c], points=p, ms=ms,
+                               plain_ms=plain_ms, library_ms=lib_ms, **err, **bd))
+
+    back = {}
+    for name, (n, hh, ww, c), p in [("train", (M, h, h, 1), P), ("ragged", (3, 7, 5, 33), 101)]:
+        feat, pts = point_inputs(n, hh, ww, c, p, dev, seed=40 + len(name))
+        dout = torch.randn((n, p, c), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(len(name)))
+        f_, p_ = feat.clone().requires_grad_(), pts.clone().requires_grad_()
+        out = point_sample_plain(f_, p_)
+        want_df, want_dp = torch.autograd.grad(out, (f_, p_), dout, retain_graph=True)
+        got_df = k.point_sample_dimg_cuda(pts, dout, (hh, ww))
+        got_dp = k.point_sample_dxy_cuda(feat, pts, dout)
+        e_img = compare(f"[k4] {name} dimg", got_df, want_df, TOL_FP32)
+        e_xy = compare(f"[k4] {name} dxy", got_dp, want_dp, TOL_FP32)
+        if name != "train":
+            continue
+        nchw = feat.permute(0, 3, 1, 2).contiguous().requires_grad_()
+        grid = _grid(pts).requires_grad_()
+        lib_out = F.grid_sample(nchw, grid, mode="bilinear", padding_mode="zeros",
+                                align_corners=False)
+        dlib = dout.permute(0, 2, 1)[..., None].contiguous()  # [N, C, P, 1]
+        corners = point_corners(pts, hh, ww)
+        for kind, fn, plain_fn, lib_fn, bd, err in (
+            ("dimg", lambda: k.point_sample_dimg_cuda(pts, dout, (hh, ww)),
+             lambda: torch.autograd.grad(out, f_, dout, retain_graph=True),
+             lambda: torch.autograd.grad(lib_out, nchw, dlib, retain_graph=True),
+             # a product and an atomic add per in-image corner and channel
+             bound(nbytes(pts, dout, got_df), 2 * c * corners), e_img),
+            ("dxy", lambda: k.point_sample_dxy_cuda(feat, pts, dout),
+             lambda: torch.autograd.grad(out, p_, dout, retain_graph=True),
+             lambda: torch.autograd.grad(lib_out, grid, dlib, retain_graph=True),
+             # per point and channel: two corner differences, two weights, a
+             # sum and an FMA with dout, for x and for y
+             bound(nbytes(feat, pts, dout, got_dp), 14 * c * n * p), e_xy),
+        ):
+            ms, plain_ms, lib_ms = (cuda_time_ms(f) for f in (fn, plain_fn, lib_fn))
+            log(f"[k4] {kind}: [{n},{hh},{ww},{c}] at {p} points: kernel {ms:.4f} ms, plain "
+                f"(autograd) {plain_ms:.4f} ms, F.grid_sample backward {lib_ms:.4f} ms, bound "
+                f"{bd['bound_ms']:.4f} ms by {bd['bound_by']} (median of 20)")
+            back[kind] = dict(err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **bd)
+        del out, lib_out
+    return {"fwd": shapes, **back}
 
 
 def _batch(rng, dev):
@@ -165,8 +396,45 @@ def _batch(rng, dev):
     }
 
 
+def train_batch(b, size, dev, seed):
+    """A loader-format S4 training batch made on `dev`: uint8 frames and
+    Maskiges, fp32 log-mel, K = 3 slots (the first two valid) of int labels
+    and bool masks, the first frame of each video weighted."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    valid = torch.zeros((b, T, TRAIN_K), dtype=torch.bool, device=dev)
+    valid[..., :2] = True
+    frame_weight = torch.zeros((b, T), device=dev)
+    frame_weight[:, 0] = 1.0
+    return {
+        "images": torch.randint(0, 256, (b, T, size, size, 3), generator=g, device=dev,
+                                dtype=torch.uint8),
+        "audio_log_mel": torch.randn((b, T, 96, 64), generator=g, device=dev),
+        "pre_masks": torch.randint(0, 256, (b, T, size, size, 3), generator=g, device=dev,
+                                   dtype=torch.uint8),
+        "labels": torch.randint(0, 2, (b, T, TRAIN_K), generator=g, device=dev),
+        "masks": torch.rand((b, T, TRAIN_K, size, size), generator=g, device=dev) > 0.5,
+        "valid": valid,
+        "gt_temporal_mask": frame_weight,
+    }
+
+
+def reset_counts():
+    from combo_avs_torch.ops import deform_attn_cuda, point_sample_cuda
+
+    deform_attn_cuda.launches = deform_attn_cuda.bwd_launches = 0
+    point_sample_cuda.fwd_launches = point_sample_cuda.dimg_launches = 0
+    point_sample_cuda.dxy_launches = 0
+
+
+def read_counts() -> dict:
+    from combo_avs_torch.ops import deform_attn_cuda, point_sample_cuda
+
+    return {"k1": deform_attn_cuda.launches, "k2": deform_attn_cuda.bwd_launches,
+            "k3": point_sample_cuda.fwd_launches, "k4_dimg": point_sample_cuda.dimg_launches,
+            "k4_dxy": point_sample_cuda.dxy_launches}
+
+
 def phase_slice(model, smi: str) -> dict:
-    from combo_avs_torch.ops import deform_attn_cuda as k1
     from combo_avs_torch.train.train_step import make_eval_step
 
     dev = next(model.parameters()).device
@@ -178,31 +446,87 @@ def phase_slice(model, smi: str) -> dict:
         step(batches[0])
     torch.cuda.synchronize()
 
-    k1.launches = 0
+    reset_counts()
     fps = {}
+    k1_total = 0
     for name, step in steps.items():
-        before = k1.launches
+        before = read_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         outs = [step(b) for b in batches]
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        n = k1.launches - before
+        after = read_counts()
+        n = after["k1"] - before["k1"]
+        k1_total += n
         for o in outs:
             if tuple(o.shape) != (B * T, 2, SIZE, SIZE) or o.dtype != torch.float32:
                 raise AssertionError(f"[slice] {name}: output {tuple(o.shape)} {o.dtype}")
             if not bool(torch.isfinite(o).all()) or float(o.min()) < 0:
                 raise AssertionError(f"[slice] {name}: output not finite and non-negative")
-        if n != 6 * NUM_BATCHES:
-            raise AssertionError(f"[slice] {name}: K1 launched {n} times for "
-                                 f"{NUM_BATCHES} forwards, expected {6 * NUM_BATCHES}")
+        if n != 6 * NUM_BATCHES or any(after[k] != before[k] for k in after if k != "k1"):
+            raise AssertionError(f"[slice] {name}: launches {after} (before {before}) for "
+                                 f"{NUM_BATCHES} forwards, expected {6 * NUM_BATCHES} of K1 only")
         fps[name] = NUM_BATCHES * B * T / dt
         log(f"[slice] {name}: {NUM_BATCHES} x [{B}x{T}x{SIZE}^2] -> {tuple(outs[0].shape)} "
             f"range [{float(outs[0].min()):.4f}, {float(outs[0].max()):.4f}], "
             f"K1 launches {n}, {fps[name]:.1f} frames/s on {smi} "
             f"(TF32 matmul {torch.backends.cuda.matmul.allow_tf32}, "
             f"cuDNN {torch.backends.cudnn.allow_tf32})")
-    return {"launches": k1.launches, "fps": fps}
+    return {"launches": read_counts(), "fps": fps}
+
+
+def phase_train(model, smi: str) -> dict:
+    """make_train_step at full width: 1 warm-up and TRAIN_STEPS timed steps."""
+    from combo_avs_torch.losses.criterion import SetCriterion, build_weight_dict
+    from combo_avs_torch.train.optim import Optimizer
+    from combo_avs_torch.train.train_step import make_train_step
+
+    dev = next(model.parameters()).device
+    wd = build_weight_dict()
+    step = make_train_step(model, SetCriterion(), wd, Optimizer(model),
+                           torch.Generator(device=dev).manual_seed(SEED))
+    batch = train_batch(TRAIN_B, SIZE, dev, seed=SEED)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    times, metrics = [], []
+    for i in range(1 + TRAIN_STEPS):
+        t0 = time.perf_counter()
+        m = step(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        metrics.append({k: float(v) for k, v in m.items()})
+        log(f"[train] step {i}{' (warm-up)' if i == 0 else ''}: {times[-1]:.4f} s, "
+            f"total_loss {metrics[-1]['total_loss']:.6f}, loss_ce {metrics[-1]['loss_ce']:.6f}, "
+            f"loss_mask {metrics[-1]['loss_mask']:.6f}, loss_dice {metrics[-1]['loss_dice']:.6f}")
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    steps = 1 + TRAIN_STEPS
+    want = {k: v * steps for k, v in TRAIN_LAUNCHES.items()}
+    if counts != want:
+        raise AssertionError(f"[train] launches {counts} in {steps} steps, expected {want}")
+    for m in metrics:
+        if set(m) != {"total_loss", *wd} or not all(np.isfinite(v) for v in m.values()):
+            raise AssertionError(f"[train] losses not finite or misnamed: {m}")
+    after = model.state_dict()
+    changed = {k for k in before if not torch.equal(before[k], after[k])}
+    buffers = {n for n, _ in model.named_buffers()}
+    frozen = {k for k in before if k.startswith("audio_backbone.")} | buffers
+    decoder = {k for k in before if k.startswith("sem_seg_head.predictor.")}
+    if changed & frozen:
+        raise AssertionError(f"[train] frozen tensors changed: {sorted(changed & frozen)[:5]}")
+    if not decoder <= changed:
+        raise AssertionError(f"[train] decoder tensors unchanged: {sorted(decoder - changed)[:5]}")
+    med = float(np.median(times[1:]))
+    log(f"[train] {TRAIN_STEPS} steps of [{TRAIN_B}x{T}x{SIZE}^2], K={TRAIN_K}, fp32: median "
+        f"{med:.4f} s/step ({TRAIN_N / med:.1f} frames/s), warm-up {times[0]:.4f} s, "
+        f"max_memory_allocated {peak / 2**30:.2f} GiB on {smi} (TF32 matmul "
+        f"{torch.backends.cuda.matmul.allow_tf32}, cuDNN {torch.backends.cudnn.allow_tf32}); "
+        f"{len(changed)} of {len(before)} tensors changed, frozen ones unchanged; launches "
+        f"{counts} in {steps} steps")
+    return {"launches": counts, "s_per_step": med, "peak_bytes": peak, "times": times}
 
 
 def phase_card_vs_cpu(model) -> None:
@@ -217,6 +541,7 @@ def phase_card_vs_cpu(model) -> None:
     cpu = MaskFormer(device="cpu")
     cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()}, strict=True)
     cpu.eval()
+    model.eval()
     outs = {}
     with torch.inference_mode():
         for name, m in (("cpu", cpu), ("gpu", model)):
@@ -230,38 +555,128 @@ def phase_card_vs_cpu(model) -> None:
         np.testing.assert_allclose(a, b, atol=SLICE_ATOL, rtol=SLICE_RTOL)
 
 
+def phase_train_card_vs_cpu(model) -> dict:
+    """The training losses and every parameter's gradient, card against CPU:
+    full width, 1 video x 5 frames x 128^2, TF32 off, dropout off (eval
+    mode), the same weights and the same injected draws, exact top-k on both
+    sides (the CPU always takes it)."""
+    from combo_avs_torch.losses.criterion import SetCriterion, build_weight_dict, total_loss
+    from combo_avs_torch.models.meta_arch import MaskFormer
+    from combo_avs_torch.train.train_step import compute_losses
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = next(model.parameters()).device
+    cpu = MaskFormer(device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()}, strict=True)
+    batch = {k: v.cpu() for k, v in train_batch(1, TRAIN_VS_CPU_SIZE, dev, seed=SEED + 2).items()}
+    crit = SetCriterion(exact_topk=True)
+    wd = build_weight_dict()
+    g = torch.Generator().manual_seed(SEED + 3)
+    draws = [crit.draw(g, T, TRAIN_K) for _ in range(DEC_OUTPUTS)]
+    res = {}
+    for name, m in (("cpu", cpu), ("gpu", model)):
+        d = next(m.parameters()).device
+        m.eval()
+        m.zero_grad(set_to_none=True)
+        t0 = time.perf_counter()
+        losses = compute_losses(m, crit, batch, torch.Generator(device=d),
+                                draws=[tuple(t.to(d) for t in dr) for dr in draws])
+        total_loss(losses, wd).backward()
+        grads = {n: p.grad.detach().cpu().double() for n, p in m.named_parameters()
+                 if p.grad is not None}
+        res[name] = ({k: float(v.detach()) for k, v in losses.items()}, grads)
+        log(f"[train-card-vs-cpu] {name}: losses and gradients in {time.perf_counter() - t0:.1f} s")
+    model.zero_grad(set_to_none=True)
+    (lc, gc), (lg, gg) = res["cpu"], res["gpu"]
+    if set(gc) != set(gg) or set(lc) != set(lg):
+        raise AssertionError("[train-card-vs-cpu] different losses or gradient sets")
+    loss_err = {k: abs(lg[k] - lc[k]) / max(1.0, abs(lc[k])) for k in lc}
+    worst = max(loss_err, key=loss_err.get)
+    norm_all = float(torch.sqrt(sum((gc[n] ** 2).sum() for n in gc)))
+    rl2 = {n: float((gg[n] - gc[n]).norm()) / max(float(gg[n].norm()), float(gc[n].norm()),
+                                                  GRAD_FLOOR * norm_all)
+           for n in gc}
+    all_rl2 = float(torch.sqrt(sum(((gg[n] - gc[n]) ** 2).sum() for n in gc))) / norm_all
+    worst_leaf = max(rl2, key=rl2.get)
+    median = float(np.median(list(rl2.values())))
+    log(f"[train-card-vs-cpu] {len(lc)} losses, worst {worst} rel err {loss_err[worst]:.3e} "
+        f"(tol {LOSS_RTOL_CPU}); {len(gc)} gradient leaves: worst {worst_leaf} rel-L2 "
+        f"{rl2[worst_leaf]:.3e} (tol {GRAD_RL2_LEAF}), median {median:.3e} (tol "
+        f"{GRAD_RL2_MEDIAN}), whole gradient {all_rl2:.3e} (tol {GRAD_RL2_ALL}); TF32 off")
+    if (loss_err[worst] > LOSS_RTOL_CPU or rl2[worst_leaf] > GRAD_RL2_LEAF
+            or median > GRAD_RL2_MEDIAN or all_rl2 > GRAD_RL2_ALL):
+        raise AssertionError("[train-card-vs-cpu] card and CPU disagree beyond the tolerances")
+    return {"loss_rel_err": loss_err[worst], "grad_rl2_leaf": rl2[worst_leaf],
+            "grad_rl2_median": median, "grad_rl2_all": all_rl2}
+
+
+def kernel_entry(name, source, replaces, launches, numbers, **extra) -> dict:
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": sum(launches.values()), "launches_by_path": launches,
+            **{k: numbers[k] for k in keys}, "library_ms": numbers.get("library_ms"), **extra}
+
+
 def main() -> int:
     smi = phase_env()
+    dev = torch.device("cuda", 0)
     phase_build()
-    k1 = phase_k1()
+    k1 = phase_k1(dev)
+    k2 = phase_k2(dev)
+    ps = phase_point_sample(dev)
 
     from combo_avs_torch.models.layers import init_weights
     from combo_avs_torch.models.meta_arch import MaskFormer
 
-    dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
-    model = MaskFormer(device=dev)
-    init_weights(model, seed=SEED)
+    model = init_weights(MaskFormer(), seed=SEED)  # builds on the current CUDA device
+    if next(model.parameters()).device != dev:
+        raise AssertionError("MaskFormer() did not build on the card")
     model.eval()
     n_params = sum(p.numel() for p in model.parameters())
     log(f"[model] MaskFormer() COMBO-R50 S4: {n_params} parameters, seeded init on "
         f"{torch.cuda.get_device_name(0)} in {time.perf_counter() - t0:.1f} s")
     sl = phase_slice(model, smi)
+    tr = phase_train(model, smi)
     phase_card_vs_cpu(model)
+    phase_train_card_vs_cpu(model)
 
-    kernels = [{
-        "name": "ms_deform_attn_fwd",
-        "route": "cuda",
-        "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES,
-        "launches": sl["launches"],
-        "max_abs_err": k1["fp32"]["max_abs_err"],
-        "ms": k1["fp32"]["ms"],
-        "plain_ms": k1["fp32"]["plain_ms"],
-        "max_abs_err_bf16": k1["bf16"]["max_abs_err"],
-        "ms_bf16": k1["bf16"]["ms"],
-        "plain_ms_bf16": k1["bf16"]["plain_ms"],
-    }]
+    ev, tl = sl["launches"], tr["launches"]
+    fwd = ps["fwd"]
+    per_layer = {k: sum(s[k] for s in fwd) for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                     "bytes", "flops")}
+    kernels = [
+        kernel_entry("ms_deform_attn_fwd", "combo_avs_torch/csrc/ms_deform_attn_fwd.cu",
+                     REPLACES["k1"], {"eval": ev["k1"], "train": tl["k1"]}, k1["fp32"],
+                     shape="value [20,1029,8,32] fp32", max_abs_err_bf16=k1["bf16"]["max_abs_err"],
+                     ms_bf16=k1["bf16"]["ms"], plain_ms_bf16=k1["bf16"]["plain_ms"],
+                     bound_ms_bf16=k1["bf16"]["bound_ms"]),
+        kernel_entry("ms_deform_attn_bwd", "combo_avs_torch/csrc/ms_deform_attn_bwd.cu",
+                     REPLACES["k2"], {"eval": ev["k2"], "train": tl["k2"]}, k2,
+                     shape="value [40,1029,8,32] fp32"),
+        kernel_entry("point_sample_fwd", "combo_avs_torch/csrc/point_sample_fwd.cu",
+                     REPLACES["k3"], {"eval": ev["k3"], "train": tl["k3"]},
+                     dict(per_layer, max_abs_err=max(s["max_abs_err"] for s in fwd),
+                          bound_by="bytes" if per_layer["bytes"] / PEAK_BYTES_PER_S
+                          >= per_layer["flops"] / PEAK_FP32_PER_S else "operations"),
+                     also_replaces=REPLACES["k5"],
+                     shape="one decoder output's 5 calls, summed; each in calls",
+                     calls=[{k: s[k] for k in ("name", "shape", "points", "ms", "plain_ms",
+                                               "library_ms", "bound_ms", "bound_by",
+                                               "max_abs_err")} for s in fwd]),
+        kernel_entry("point_sample_bwd_dimg", "combo_avs_torch/csrc/point_sample_bwd.cu",
+                     REPLACES["k4"], {"eval": ev["k4_dimg"], "train": tl["k4_dimg"]}, ps["dimg"],
+                     shape="dout [120,12544,1] into [120,56,56,1]",
+                     also_replaces=REPLACES["k4_dxy"],
+                     dxy_launches={"eval": ev["k4_dxy"], "train": tl["k4_dxy"]},
+                     **{f"dxy_{k}": ps["dxy"][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                                           "library_ms", "bound_ms", "bound_by")}),
+    ]
+    log(json.dumps({"train": {"s_per_step": tr["s_per_step"], "step_times_s": tr["times"],
+                              "max_memory_allocated": tr["peak_bytes"],
+                              "shape": f"{TRAIN_B}x{T}x{SIZE}^2 K={TRAIN_K} fp32"},
+                    "eval_fps": sl["fps"], "card": smi}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

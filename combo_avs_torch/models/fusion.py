@@ -27,6 +27,17 @@ from combo_avs_torch.models.position_encoding import sine_position_encoding
 CLAMP = 50000.0
 LN_EPS = 1e-6  # flax LayerNorm's default, as in the JAX package
 GAMMA_INIT = 1e-4  # LayerScale init of the fusion residuals
+DROPOUT = 0.1  # on both attention maps in training mode (fusion.py:88-90 of the JAX package)
+
+
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout with a mask drawn from `generator` (never from the
+    global RNG): keep with probability 1 - rate, scale kept values by
+    1 / (1 - rate), as flax's `nn.Dropout`."""
+    if generator is None:
+        raise ValueError("dropout in training mode needs an explicit torch.Generator")
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class BiMultiHeadAttention(nn.Module):
@@ -46,8 +57,11 @@ class BiMultiHeadAttention(nn.Module):
             init_xavier(lin, g)
 
     def forward(self, v, a, pos_v: Optional[torch.Tensor] = None,
-                pos_a: Optional[torch.Tensor] = None):
-        """v [B, N, v_dim], a [B, 1, a_dim] -> (dv [B, N, v_dim], da [B, 1, a_dim])."""
+                pos_a: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
+        """v [B, N, v_dim], a [B, 1, a_dim] -> (dv [B, N, v_dim], da [B, 1, a_dim]).
+        In training mode both attention maps take dropout, drawn from
+        `generator`."""
         B, N, _ = v.shape
         M = self.num_heads
         hd = self.embed_dim // M
@@ -62,6 +76,9 @@ class BiMultiHeadAttention(nn.Module):
         attn_v = logits.softmax(-1)
         # vision->audio: max-normalized softmax over the same axis
         attn_a = (logits - logits.amax(-1, keepdim=True)).softmax(-1)
+        if self.training:
+            attn_v = dropout(attn_v, DROPOUT, generator)
+            attn_a = dropout(attn_a, DROPOUT, generator)
 
         out_v = torch.einsum("bmn,bmd->bnmd", attn_v, val_a).reshape(B, N, self.embed_dim)
         out_a = torch.einsum("bmn,bnmd->bmd", attn_a, val_v).reshape(B, 1, self.embed_dim)
@@ -84,7 +101,8 @@ class BiAttentionBlock(nn.Module):
         for p in (*self.gamma_v_list, self.gamma_a):
             p.fill_(GAMMA_INIT)
 
-    def forward(self, visual: Sequence[torch.Tensor], audio, pos_v=None, pos_a=None):
+    def forward(self, visual: Sequence[torch.Tensor], audio, pos_v=None, pos_a=None,
+                generator: Optional[torch.Generator] = None):
         """visual: per-level [B, C, H, W] maps; audio [B, 1, a_dim] ->
         (fused maps, fused audio [B, 1, a_dim])."""
         out, new_a = [], []
@@ -92,7 +110,7 @@ class BiAttentionBlock(nn.Module):
             B, C, H, W = feat.shape
             v = self.layer_norm_v_list[lvl](feat.flatten(2).transpose(1, 2))  # [B, HW, C]
             a = self.layer_norm_a_list[lvl](audio)
-            dv, da = self.attn_list[lvl](v, a, pos_v, pos_a)
+            dv, da = self.attn_list[lvl](v, a, pos_v, pos_a, generator)
             # residuals attach to the post-LayerNorm features
             v = v + self.gamma_v_list[lvl] * dv
             new_a.append(a + self.gamma_a * da)
@@ -118,7 +136,8 @@ class AVFuse(nn.Module):
         self.audio_pos.weight.normal_(0.0, 1.0, generator=g)
         self.level_embed.weight.normal_(0.0, 1.0, generator=g)
 
-    def forward(self, visual_features: Dict[str, torch.Tensor], audio: torch.Tensor):
+    def forward(self, visual_features: Dict[str, torch.Tensor], audio: torch.Tensor,
+                generator: Optional[torch.Generator] = None):
         feats = []
         image_pos = None
         for i, name in enumerate(self.fused_backbone):
@@ -128,7 +147,8 @@ class AVFuse(nn.Module):
             image_pos = torch.from_numpy(pe).to(f.device, f.dtype)
             feats.append(f + self.level_embed.weight[i][None, :, None, None])
         pos_a = self.audio_pos.weight[None].expand(audio.shape[0], 1, -1)
-        fused, audio = self.b_attn(feats, audio, pos_v=image_pos, pos_a=pos_a)
+        fused, audio = self.b_attn(feats, audio, pos_v=image_pos, pos_a=pos_a,
+                                   generator=generator)
         out = dict(visual_features)
         out.update(zip(self.fused_backbone, fused))
         return out, audio

@@ -8,7 +8,7 @@ hidden MLP, and the predictor runs over the 3 multi-scale maps.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -47,8 +47,9 @@ class MaskFormerHead(nn.Module):
             num_classes, hidden_dim=hidden_dim, num_queries=num_queries, nheads=nheads,
             dim_feedforward=dim_feedforward, dec_layers=dec_layers, mask_dim=mask_dim)
 
-    def forward(self, features: Dict[str, torch.Tensor], audio_feature: torch.Tensor):
+    def forward(self, features: Dict[str, torch.Tensor], audio_feature: torch.Tensor,
+                generator: Optional[torch.Generator] = None):
         mask_features, _, multi_scale_features = self.pixel_decoder(features)
-        fused, audio = self.fusion_module({"res2": mask_features}, audio_feature)
+        fused, audio = self.fusion_module({"res2": mask_features}, audio_feature, generator)
         audio = self.audio_transformation(audio)
         return self.predictor(multi_scale_features, audio, fused["res2"])

@@ -10,6 +10,12 @@ W/4]` and the per-layer `aux_outputs`. Internally everything is NCHW.
 
 `state_dict()` keys are the reference `.pth` names that
 `combo_avs_tpu/train/checkpoint.py::convert_combo_checkpoint` reads.
+
+The model is built on the current CUDA device unless the caller passes
+another `device` (the CPU tests pass "cpu"). The VGGish tower is frozen: it
+runs under `torch.no_grad()` (the JAX package's stop_gradient). In training
+mode the fusion's attention dropout draws from the `dropout_generator` that
+`forward` is given.
 """
 
 from __future__ import annotations
@@ -27,6 +33,17 @@ from combo_avs_torch.models.vggish import VGGish
 
 PIXEL_MEAN = (123.675, 116.280, 103.530)
 PIXEL_STD = (58.395, 57.120, 57.375)
+
+
+def default_device(device: Optional[torch.device | str] = None) -> torch.device:
+    """`device`, or the current CUDA device when it is None; raises when there
+    is no CUDA device, since the port's entry points run on the card unless
+    the caller asks for the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
 
 
 def _build_backbone(name: str) -> ResNet:
@@ -58,7 +75,7 @@ class MaskFormer(nn.Module):
         device: Optional[torch.device | str] = None,
     ):
         super().__init__()
-        with torch.device(device if device is not None else "cpu"):
+        with default_device(device):
             self.backbone = _build_backbone(backbone_name)
             self.pre_sam_backbone = _build_backbone(backbone_name)
             self.audio_backbone = VGGish(width_mult=vggish_width)
@@ -84,18 +101,20 @@ class MaskFormer(nn.Module):
         images: torch.Tensor,  # [B, T, H, W, 3] raw RGB (0-255)
         audio_log_mel: torch.Tensor,  # [B, T, 96, 64]
         pre_masks: torch.Tensor,  # [B, T, H, W, 3] Maskige RGB
+        dropout_generator: Optional[torch.Generator] = None,
     ) -> Dict[str, object]:
         B, T, H, W, _ = images.shape
         frames = self._normalize(images.reshape(B * T, H, W, 3))
         # the audio tower is frozen; [B*T, 1, 128]
-        audio_feature = self.audio_backbone(audio_log_mel.reshape(B * T, 1, 96, 64))[:, None, :]
+        with torch.no_grad():
+            audio_feature = self.audio_backbone(audio_log_mel.reshape(B * T, 1, 96, 64))[:, None, :]
 
         features = self.backbone(frames)
         pre_feats = self.pre_sam_backbone(self._normalize(pre_masks.reshape(B * T, H, W, 3)))
         for i, key in enumerate(sorted(features)):
             gate = self.scale_factor_module[i](pre_feats[key])
             features[key] = features[key] + gate * pre_feats[key]
-        return self.sem_seg_head(features, audio_feature)
+        return self.sem_seg_head(features, audio_feature, dropout_generator)
 
 
 def semantic_inference(

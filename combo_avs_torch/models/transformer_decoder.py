@@ -186,4 +186,8 @@ class MultiScaleMaskedTransformerDecoder(nn.Module):
             "pred_masks": predictions_mask[-1],
             "aux_outputs": [{"pred_logits": a, "pred_masks": b}
                             for a, b in zip(predictions_class[:-1], predictions_mask[:-1])],
+            # the cosine loss's inputs: the first prediction and every layer's
+            # but the last, each [B, Q, h*w]
+            "middles_attn_mask": [m.reshape(B, self.num_queries, -1)
+                                  for m in predictions_mask[:-1]],
         }

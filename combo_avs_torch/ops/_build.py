@@ -43,22 +43,37 @@ def library_path(source: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
 
 
+def load_all(sources) -> list:
+    """Build every `csrc/<source>` whose library is missing, one nvcc process
+    per source, all started together; then load each (once per process)."""
+    with _lock:
+        todo = [s for s in sources if s not in _libs and not os.path.exists(library_path(s))]
+        if todo:
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            nvcc = find_nvcc()
+            jobs = []
+            for source in todo:
+                path = library_path(source)
+                tmp = f"{path}.{os.getpid()}.tmp"
+                cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, source)]
+                jobs.append((source, path, tmp, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+            failed = []
+            for source, path, tmp, proc in jobs:
+                out, _ = proc.communicate()
+                if proc.returncode != 0:
+                    failed.append(f"nvcc failed ({proc.returncode}) for {source}:\n{out}")
+                else:
+                    os.replace(tmp, path)  # atomic: a concurrent loader sees all or nothing
+            if failed:
+                raise RuntimeError("\n".join(failed))
+        for source in sources:
+            if source not in _libs:
+                _libs[source] = ctypes.CDLL(library_path(source))
+        return [_libs[s] for s in sources]
+
+
 def load(source: str) -> ctypes.CDLL:
     """Build `csrc/<source>` if its library is missing, then load it (once
     per process)."""
-    with _lock:
-        if source in _libs:
-            return _libs[source]
-        path = library_path(source)
-        if not os.path.exists(path):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{path}.{os.getpid()}.tmp"
-            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, source)]
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            if res.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({res.returncode}) for {source}:\n{res.stdout}{res.stderr}")
-            os.replace(tmp, path)  # atomic: a concurrent loader sees all or nothing
-        lib = ctypes.CDLL(path)
-        _libs[source] = lib
-        return lib
+    return load_all([source])[0]

@@ -1,0 +1,137 @@
+"""Optimizer and LR schedule of the S4 recipe.
+
+Port of `combo_avs_tpu/train/optim.py`, whose optax chain is
+
+  clip_by_global_norm(CLIP_VALUE) -> scale_by_adam(0.9, 0.999, 1e-8)
+    -> add_decayed_weights(wd per parameter) -> scale_by_learning_rate(schedule)
+    -> x lr multiplier per parameter.
+
+`torch.optim.AdamW` with one group per (lr multiplier, weight decay) and the
+group's lr set to schedule(step) x multiplier before each step computes the
+same update: p -= lr * mult * (adam(g) + wd * p). The clip is written out as
+optax's `g * min(1, c / ||g||)` with no epsilon (`clip_grad_norm_` adds 1e-6
+to the norm).
+
+Parameter groups follow the reference's rules by module type and name:
+parameters of norm modules get WEIGHT_DECAY_NORM, `nn.Embedding` tables
+WEIGHT_DECAY_EMBED (the pixel decoder's `level_embed` is a plain parameter
+and keeps the default decay), `relative_position_bias_table` and
+`absolute_pos_embed` none; parameters under a "backbone" module take the
+backbone lr multiplier; the VGGish tower ("audio_backbone") is frozen and gets
+no group.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, List
+
+import torch
+from torch import nn
+
+NORM_MODULE_TYPES = (nn.BatchNorm1d, nn.BatchNorm2d, nn.BatchNorm3d, nn.SyncBatchNorm,
+                     nn.GroupNorm, nn.InstanceNorm1d, nn.InstanceNorm2d, nn.InstanceNorm3d,
+                     nn.LayerNorm, nn.LocalResponseNorm)
+ZERO_WD_NAMES = ("relative_position_bias_table", "absolute_pos_embed")
+FROZEN_MODULES = ("audio_backbone",)
+
+
+def warmup_poly_schedule(base_lr: float, max_iter: int, warmup_iters: int = 0,
+                         warmup_factor: float = 1.0, power: float = 0.9,
+                         constant_ending: float = 0.0) -> Callable[[int], float]:
+    """d2 WarmupPolyLR: base * warmup(t) * (1 - t / max_iter)^power."""
+
+    def schedule(count: int) -> float:
+        t = min(count, max_iter)
+        if warmup_iters > 0:
+            alpha = min(max(t / warmup_iters, 0.0), 1.0)
+            warm = warmup_factor * (1 - alpha) + alpha
+        else:
+            warm = 1.0
+        poly = max(1.0 - t / max_iter, 0.0) ** power
+        if constant_ending > 0:
+            poly = max(poly, constant_ending)
+        return base_lr * warm * poly
+
+    return schedule
+
+
+def param_groups(model: nn.Module, weight_decay: float, weight_decay_norm: float,
+                 weight_decay_embed: float, backbone_multiplier: float) -> List[Dict]:
+    """The trainable parameters by the reference's rules, one group per
+    (lr multiplier, weight decay): {"params", "names", "lr_multiplier",
+    "weight_decay"}. Parameters with requires_grad=False and the frozen audio
+    tower are in none. The reference makes a group per parameter; merging
+    equal ones changes no update, and AdamW then updates a group with a few
+    multi-tensor kernels instead of several kernels per parameter."""
+    groups: Dict[tuple, Dict] = {}
+    seen = set()
+    for module_name, module in model.named_modules():
+        if any(f in module_name.split(".") for f in FROZEN_MODULES):
+            continue
+        for pname, p in module.named_parameters(recurse=False):
+            if not p.requires_grad or id(p) in seen:
+                continue
+            seen.add(id(p))
+            wd = weight_decay
+            if any(k in pname for k in ZERO_WD_NAMES):
+                wd = 0.0
+            if isinstance(module, NORM_MODULE_TYPES):
+                wd = weight_decay_norm
+            if isinstance(module, nn.Embedding):
+                wd = weight_decay_embed
+            mult = backbone_multiplier if "backbone" in module_name else 1.0
+            g = groups.setdefault((mult, wd), {"params": [], "names": [], "lr_multiplier": mult,
+                                               "weight_decay": wd})
+            g["params"].append(p)
+            g["names"].append(f"{module_name}.{pname}".lstrip("."))
+    return list(groups.values())
+
+
+@torch.no_grad()
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> torch.Tensor:
+    """Scale `grads` in place by min(1, max_norm / ||grads||) (one L2 norm
+    over all of them), as optax's clip_by_global_norm; returns the norm. No
+    host synchronization."""
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
+    torch._foreach_mul_(grads, scale)
+    return norm
+
+
+class Optimizer:
+    """Clipped AdamW with the reference's parameter groups and schedule.
+
+    S4 defaults: SOLVER of combo_avs_tpu/configs/avs_s4/
+    R50-AVSS4-SemanticSegmentation.yaml:32-46 (BASE_LR 1e-4, MAX_ITER 90000,
+    no warmup, WEIGHT_DECAY 0.05, BACKBONE_MULTIPLIER 0.1, full-model clip
+    0.01) and WEIGHT_DECAY_NORM / WEIGHT_DECAY_EMBED 0 and POLY_LR_POWER 0.9
+    of combo_avs_tpu/config.py:407-412."""
+
+    def __init__(self, model: nn.Module, base_lr: float = 1e-4, max_iter: int = 90000,
+                 warmup_iters: int = 0, warmup_factor: float = 1.0, power: float = 0.9,
+                 weight_decay: float = 0.05, weight_decay_norm: float = 0.0,
+                 weight_decay_embed: float = 0.0, backbone_multiplier: float = 0.1,
+                 clip_value: float = 0.01):
+        self.groups = param_groups(model, weight_decay, weight_decay_norm, weight_decay_embed,
+                                   backbone_multiplier)
+        self.schedule = warmup_poly_schedule(base_lr, max_iter, warmup_iters, warmup_factor,
+                                             power)
+        self.clip_value = clip_value
+        self.adamw = torch.optim.AdamW(self.groups, lr=base_lr, betas=(0.9, 0.999), eps=1e-8)
+        self.count = 0  # updates taken, as optax's schedule count
+
+    def zero_grad(self) -> None:
+        self.adamw.zero_grad(set_to_none=True)
+
+    def step(self) -> None:
+        """One update from the parameters' `.grad`: clip, set each group's lr
+        to schedule(count) x its multiplier, AdamW."""
+        grads = [p.grad for g in self.adamw.param_groups for p in g["params"]
+                 if p.grad is not None]
+        if self.clip_value > 0 and grads:
+            clip_by_global_norm_(grads, self.clip_value)
+        lr = self.schedule(self.count)
+        for g in self.adamw.param_groups:
+            g["lr"] = lr * g["lr_multiplier"]
+        self.adamw.step()
+        self.count += 1

@@ -1,19 +1,24 @@
-"""The eval step: batch of raw frames -> per-frame semantic probability maps.
+"""The train and eval steps.
 
-Port of the eval half of `combo_avs_tpu/train/train_step.py`
-(`make_eval_step`, `_model_inputs`). PyTorch runs eagerly, so there is no
-jit; the step runs under `torch.inference_mode()`.
+Port of `combo_avs_tpu/train/train_step.py` (`make_train_step`,
+`make_eval_step`, `_flatten_targets`, `_model_inputs`). PyTorch runs eagerly,
+so there is no jit: the train step is forward, criterion, backward and
+optimizer update in one call; the eval step runs under
+`torch.inference_mode()`. Each step sets the model's mode for its call and
+restores the mode it found.
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from combo_avs_torch.losses.criterion import Draws, SetCriterion, total_loss
 from combo_avs_torch.models.meta_arch import semantic_inference
+from combo_avs_torch.train.optim import Optimizer
 
 
 def _model_inputs(batch: Dict, dtype: torch.dtype, device: torch.device) -> Tuple[torch.Tensor, ...]:
@@ -21,11 +26,75 @@ def _model_inputs(batch: Dict, dtype: torch.dtype, device: torch.device) -> Tupl
     compute type there (the loader ships uint8 frames and Maskiges, which
     bf16 holds exactly)."""
 
-    def cast(x):
-        x = torch.from_numpy(x) if isinstance(x, np.ndarray) else x
-        return x.to(device=device, non_blocking=True).to(dtype)
+    return tuple(_to(batch[k], device, dtype) for k in ("images", "audio_log_mel", "pre_masks"))
 
-    return cast(batch["images"]), cast(batch["audio_log_mel"]), cast(batch["pre_masks"])
+
+def _to(x, device: torch.device, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    x = torch.from_numpy(x) if isinstance(x, np.ndarray) else x
+    x = x.to(device=device, non_blocking=True)
+    return x if dtype is None else x.to(dtype)
+
+
+def _flatten_targets(batch: Dict, device: torch.device) -> Dict[str, torch.Tensor]:
+    """[B, T, ...] target arrays -> [B*T, ...] frame-major targets on `device`
+    (masks keep the loader's bool type; the criterion casts them)."""
+    labels = _to(batch["labels"], device, torch.long)
+    B, T, K = labels.shape
+    masks = _to(batch["masks"], device)
+    return {
+        "labels": labels.reshape(B * T, K),
+        "masks": masks.reshape(B * T, K, *masks.shape[3:]),
+        "valid": _to(batch["valid"], device, torch.bool).reshape(B * T, K),
+    }
+
+
+def compute_losses(model: torch.nn.Module, criterion: SetCriterion, batch: Dict,
+                   generator: torch.Generator,
+                   draws: Optional[Sequence[Draws]] = None) -> Dict[str, torch.Tensor]:
+    """The training forward: model outputs on the batch, then every named
+    loss. `gt_temporal_mask` [B, T] becomes the per-frame weight (S4: the
+    first frame of each video). Dropout (in training mode) and the
+    criterion's draws come from `generator`, in that order, unless `draws`
+    are given. The model's mode is the caller's."""
+    param = next(model.parameters())
+    images, mel, pre = _model_inputs(batch, param.dtype, param.device)
+    outputs = model(images, mel, pre, dropout_generator=generator)
+    targets = _flatten_targets(batch, param.device)
+    fw = batch.get("gt_temporal_mask")
+    fw = None if fw is None else _to(fw, param.device, torch.float32).reshape(-1)
+    return criterion(outputs, targets, frame_weight=fw, generator=generator, draws=draws)
+
+
+def make_train_step(model: torch.nn.Module, criterion: SetCriterion,
+                    weight_dict: Dict[str, float], optimizer: Optimizer,
+                    generator: torch.Generator,
+                    amp: bool = False) -> Callable[[Dict], Dict[str, torch.Tensor]]:
+    """Returns `step(batch) -> metrics`: one training step (forward in
+    training mode, losses, backward, clipped AdamW update) on a loader-format
+    batch (uint8 `images` and `pre_masks` [B, T, H, W, 3], `audio_log_mel`,
+    `labels` [B, T, K], bool `masks` [B, T, K, H, W], `valid` [B, T, K],
+    `gt_temporal_mask` [B, T]). The metrics are `total_loss` and every named
+    loss, as 0-dim tensors on the model's device (reading them synchronizes).
+    `generator` (on the model's device) drives dropout and the criterion's
+    draws. amp=True, the AVSS bf16 regime, is not ported yet."""
+    if amp:
+        raise NotImplementedError("make_train_step: amp=True (the AVSS bf16 regime) is not "
+                                  "ported yet")
+
+    def train_step(batch: Dict) -> Dict[str, torch.Tensor]:
+        was_training = model.training
+        model.train()
+        try:
+            losses = compute_losses(model, criterion, batch, generator)
+            loss = total_loss(losses, weight_dict)
+            optimizer.zero_grad()
+            loss.backward()
+            optimizer.step()
+        finally:
+            model.train(was_training)
+        return {"total_loss": loss.detach(), **{k: v.detach() for k, v in losses.items()}}
+
+    return train_step
 
 
 def _tensors(module: torch.nn.Module):
@@ -43,8 +112,8 @@ def make_eval_step(model: torch.nn.Module, out_size: Tuple[int, int],
     whenever a parameter or buffer of `model` changed since the last one (a
     `load_state_dict`, an optimizer step), so like the fp32 step it always
     runs the model's current weights. With bf16=False the forward runs in the
-    weights' own type."""
-    model.eval()
+    weights' own type. Each call runs the network in eval mode (no dropout)
+    and then restores the mode it found."""
     net = copy.deepcopy(model).to(torch.bfloat16) if bf16 else model
     param = next(net.parameters())
     dtype, device = param.dtype, param.device
@@ -60,9 +129,14 @@ def make_eval_step(model: torch.nn.Module, out_size: Tuple[int, int],
                 for dst, src in zip(_tensors(net), _tensors(model)):
                     dst.copy_(src)
             synced[:] = stamp()
-        with torch.inference_mode():
-            outputs = net(*_model_inputs(batch, dtype, device))
-            return semantic_inference(outputs["pred_logits"], outputs["pred_masks"],
-                                      out_size=out_size)
+        was_training = net.training
+        net.eval()
+        try:
+            with torch.inference_mode():
+                outputs = net(*_model_inputs(batch, dtype, device))
+                return semantic_inference(outputs["pred_logits"], outputs["pred_masks"],
+                                          out_size=out_size)
+        finally:
+            net.train(was_training)
 
     return eval_step

@@ -1,7 +1,8 @@
-"""Deformable attention in the PyTorch port: the plain version against the
-JAX composition and the Pallas kernel (interpret mode), and the device
-dispatch. The hand-written kernel K1 is checked on the card by
-tests/test_torch_k1_card.py.
+"""Deformable attention in the PyTorch port: the plain version and its
+gradients against the JAX composition and the Pallas kernels (interpret
+mode), and the device dispatch. The hand-written kernels K1 and K2 are
+checked on the card by tests/test_torch_k1_card.py and
+tests/test_torch_k234_card.py.
 
 Inputs are made with numpy from a seed and handed to both frameworks."""
 
@@ -12,9 +13,10 @@ import pytest
 import torch
 
 from combo_avs_tpu.ops.deform_attn import ms_deform_attn as jax_ms_deform_attn
-from combo_avs_tpu.ops.deform_attn_pallas import _forward_hfuse
+from combo_avs_tpu.ops.deform_attn_pallas import _backward_hfuse, _forward_hfuse
 from combo_avs_torch.ops import deform_attn_cuda
 from combo_avs_torch.ops.deform_attn import ms_deform_attn_plain
+from tests.test_torch_slice import one_torch_thread  # noqa: F401 (autouse fixture)
 
 SHAPES = ((4, 6), (2, 3), (5, 5))
 B, M, D, Lq, P = 2, 2, 8, 37, 3
@@ -123,3 +125,48 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     value, loc, wts = (torch.from_numpy(a) for a in _inputs(7))
     with pytest.raises(ValueError, match="CUDA"):
         deform_attn_cuda.ms_deform_attn_cuda(value, SHAPES, loc, wts)
+
+
+def _plain_grads(value, loc, wts, g, shapes=SHAPES):
+    t = [torch.from_numpy(np.asarray(a)).requires_grad_() for a in (value, loc, wts)]
+    ms_deform_attn_plain(t[0], shapes, t[1], t[2]).backward(torch.from_numpy(g))
+    return [a.grad.numpy() for a in t]
+
+
+def test_plain_gradients_match_jax_vjp_fp64():
+    """dvalue, dlocations and dweights of the plain version (autograd) against
+    jax.vjp of the JAX composition, in float64 with a third of the points on
+    exact pixel centres: 1e-10 of each gradient's scale."""
+    value, loc, wts = (a.astype(np.float64) for a in _inputs(8))
+    g = np.random.RandomState(9).randn(B, Lq, M * D)
+    with jax.enable_x64(True):
+        _, vjp = jax.vjp(lambda v, l, w: jax_ms_deform_attn(v, SHAPES, l, w),
+                         jnp.asarray(value), jnp.asarray(loc), jnp.asarray(wts))
+        want = [np.asarray(x) for x in vjp(jnp.asarray(g))]
+    for got, exp in zip(_plain_grads(value, loc, wts, g), want):
+        assert got.shape == exp.shape and got.dtype == np.float64
+        np.testing.assert_allclose(got, exp, rtol=0, atol=1e-10 * max(1.0, np.abs(exp).max()))
+
+
+def test_plain_gradients_match_pallas_backward_interpret():
+    """The TPU's K2 (`_backward_hfuse`, tent-matrix form, HIGHEST precision)
+    in interpret mode against the plain version's autograd in fp32: the same
+    products summed in another order, 1e-5 of each gradient's scale."""
+    value, loc, wts = _inputs(10)
+    g = np.random.RandomState(11).randn(B, Lq, M * D).astype(np.float32)
+    want = [np.asarray(x) for x in _backward_hfuse(value, SHAPES, loc, wts, g, interpret=True)]
+    for got, exp in zip(_plain_grads(value, loc, wts, g), want):
+        np.testing.assert_allclose(got, exp, rtol=0, atol=1e-5 * np.abs(exp).max())
+
+
+def test_cpu_dispatch_gradcheck_fp64():
+    """torch.autograd.gradcheck of the CPU dispatch in float64, at locations
+    away from integer sample coordinates (the corner split is a step there)."""
+    shapes = ((3, 4), (2, 2))
+    rng = np.random.RandomState(12)
+    value = torch.from_numpy(rng.randn(1, 16, 2, 4)).requires_grad_()
+    loc = torch.from_numpy(rng.uniform(-0.1, 1.1, (1, 5, 2, 2, 2, 2))).requires_grad_()
+    wts = torch.from_numpy(rng.rand(1, 5, 2, 2, 2)).requires_grad_()
+    assert torch.autograd.gradcheck(
+        lambda v, l, w: deform_attn_cuda.ms_deform_attn(v, shapes, l, w), (value, loc, wts),
+        eps=1e-7, atol=1e-6)

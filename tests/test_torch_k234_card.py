@@ -1,0 +1,130 @@
+"""The hand-written CUDA kernels of the training slice against their plain
+PyTorch versions, on a CUDA card: K2 (the deformable-attention backward,
+through `MSDeformAttnFunction`), K3/K5 (the point-sample forward) and K4 (its
+image and point gradients, through `PointSampleFunction`). The kernels have
+no CPU mode, so without a card every test here skips.
+
+This file imports neither jax nor the JAX package, so it runs on a machine
+with only torch. Skip tests/conftest.py, which configures jax:
+
+    python -m pytest --noconftest -p no:cacheprovider tests/test_torch_k234_card.py
+"""
+
+import pytest
+import torch
+
+from chip_smoke import TOL_FP32, k1_inputs, point_inputs
+from combo_avs_torch.ops import deform_attn_cuda, point_sample_cuda
+from combo_avs_torch.ops.deform_attn import ms_deform_attn_plain
+from combo_avs_torch.ops.grid_sample import point_sample, point_sample_plain
+
+LEVELS = ((7, 7), (14, 14), (28, 28))  # the main path's levels at 224^2
+DEFORM = {"main": dict(levels=LEVELS, lq=1029, m=8, d=32, b=2),
+          "ragged": dict(levels=((3, 5), (6, 10)), lq=37, m=3, d=16, b=3)}
+POINTS = {  # feat [N, H, W, C] at P points
+    "criterion": (6, 56, 56, 1, 12544),
+    "labels": (3, 224, 224, 1, 2000),
+    "matcher": (2, 56, 56, 100, 12544),
+    "ragged": (3, 7, 5, 33, 101),
+}
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K2-K5 are CUDA kernels with no CPU mode)")
+    return torch.device("cuda", 0)
+
+
+def _close(got, want, tol=TOL_FP32):
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == want.dtype
+    err = (got - want).abs().max().item()
+    assert err <= tol * want.abs().max().item(), err
+
+
+def _plain_grads(fn, inputs, g):
+    leaves = [t.detach().clone().requires_grad_() for t in inputs]
+    return torch.autograd.grad(fn(*leaves), leaves, g)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(DEFORM))
+def test_k2_matches_plain_autograd(cuda_device, case):
+    """dvalue, dlocations and dweights through the autograd Function (K1
+    forward, K2 backward) against autograd of the plain version."""
+    c = DEFORM[case]
+    value, loc, w = k1_inputs(c["b"], c["m"], c["d"], 4, c["levels"], c["lq"], torch.float32,
+                              cuda_device, seed=5)
+    g = torch.randn((c["b"], c["lq"], c["m"] * c["d"]), device=cuda_device)
+    before = (deform_attn_cuda.launches, deform_attn_cuda.bwd_launches)
+    leaves = [t.clone().requires_grad_() for t in (value, loc, w)]
+    out = deform_attn_cuda.ms_deform_attn(leaves[0], c["levels"], leaves[1], leaves[2])
+    got = torch.autograd.grad(out, leaves, g)
+    assert (deform_attn_cuda.launches, deform_attn_cuda.bwd_launches) == (before[0] + 1,
+                                                                          before[1] + 1)
+    want = _plain_grads(lambda v, l, a: ms_deform_attn_plain(v, c["levels"], l, a),
+                        (value, loc, w), g)
+    for a, b in zip(got, want):
+        _close(a, b)
+
+
+@pytest.mark.gpu
+def test_k2_refuses_what_it_does_not_take(cuda_device):
+    c = DEFORM["ragged"]
+    value, loc, w = k1_inputs(1, c["m"], c["d"], 4, c["levels"], 5, torch.float32, cuda_device,
+                              seed=6)
+    g = torch.ones((1, 5, c["m"] * c["d"]), device=cuda_device)
+    with pytest.raises(TypeError, match="float32"):
+        deform_attn_cuda.ms_deform_attn_bwd_cuda(value.bfloat16(), c["levels"], loc, w, g)
+    with pytest.raises(ValueError, match="grad_out"):
+        deform_attn_cuda.ms_deform_attn_bwd_cuda(value, c["levels"], loc, w, g[:, :4])
+    with pytest.raises(ValueError, match="CUDA"):
+        deform_attn_cuda.ms_deform_attn_bwd_cuda(value.cpu(), c["levels"], loc.cpu(), w.cpu(),
+                                                 g.cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(POINTS))
+def test_point_sample_matches_plain(cuda_device, case):
+    """K3/K5 forward, and K4's image and point gradients through the autograd
+    Function, against the plain version and its autograd."""
+    n, h, w, c, p = POINTS[case]
+    feat, pts = point_inputs(n, h, w, c, p, cuda_device, seed=7)
+    g = torch.randn((n, p, c), device=cuda_device)
+    before = (point_sample_cuda.fwd_launches, point_sample_cuda.dimg_launches,
+              point_sample_cuda.dxy_launches)
+    f_, p_ = feat.clone().requires_grad_(), pts.clone().requires_grad_()
+    out = point_sample(f_, p_)
+    got_df, got_dp = torch.autograd.grad(out, (f_, p_), g)
+    assert (point_sample_cuda.fwd_launches, point_sample_cuda.dimg_launches,
+            point_sample_cuda.dxy_launches) == tuple(x + 1 for x in before)
+    _close(out.detach(), point_sample_plain(feat, pts))
+    want_df, want_dp = _plain_grads(point_sample_plain, (feat, pts), g)
+    _close(got_df, want_df)
+    _close(got_dp, want_dp)
+
+
+@pytest.mark.gpu
+def test_point_gradient_kernel_runs_only_when_points_need_it(cuda_device):
+    """On the training path the points carry no gradient: the backward then
+    launches the image-gradient kernel alone."""
+    feat, pts = point_inputs(2, 56, 56, 1, 500, cuda_device, seed=8)
+    before = (point_sample_cuda.dimg_launches, point_sample_cuda.dxy_launches)
+    f_ = feat.clone().requires_grad_()
+    point_sample(f_, pts).sum().backward()
+    assert (point_sample_cuda.dimg_launches, point_sample_cuda.dxy_launches) == (
+        before[0] + 1, before[1])
+
+
+@pytest.mark.gpu
+def test_point_sample_refuses_what_it_does_not_take(cuda_device):
+    feat, pts = point_inputs(2, 8, 8, 3, 10, cuda_device, seed=9)
+    with pytest.raises(TypeError, match="float32"):
+        point_sample_cuda.point_sample_fwd_cuda(feat.double(), pts.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        point_sample_cuda.point_sample_fwd_cuda(feat[..., ::2], pts)
+    with pytest.raises(ValueError, match="N, H, W, C"):
+        point_sample_cuda.point_sample_fwd_cuda(feat[:1], pts)
+    with pytest.raises(ValueError, match=r"\[N, P, 2\]"):
+        point_sample_cuda.point_sample_fwd_cuda(feat, pts[..., :1].contiguous())

@@ -33,6 +33,17 @@ PORT_FIELDS = ("backbone_name", "num_classes", "num_queries", "hidden_dim", "nhe
 B, T, S = 1, 2, 64
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's CPU tests run torch on one thread: their tensors are small
+    (the wall time is the same), and the suite's other workers need the
+    cores. The other test_torch_*.py files import this fixture."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _port_kwargs(jax_model):
     return {f: getattr(jax_model, f) for f in PORT_FIELDS}
 
@@ -52,7 +63,7 @@ def tiny():
     """The tiny flagship: JAX model, port model, and the JAX variables made
     from the port's seeded weights."""
     jm = graft._flagship_model(tiny=True)
-    port = init_weights(MaskFormer(**_port_kwargs(jm)), seed=0).eval()
+    port = init_weights(MaskFormer(**_port_kwargs(jm), device="cpu"), seed=0).eval()
     sd = {k: v.numpy() for k, v in port.state_dict().items()}
     variables = convert_combo_checkpoint(sd, dec_layers=jm.dec_layers, enc_layers=jm.enc_layers)
     return jm, port, variables
@@ -76,7 +87,7 @@ def test_state_dict_from_flax_inverts_converter(tiny):
         assert np.asarray(a).dtype == np.asarray(v).dtype, path
         np.testing.assert_array_equal(np.asarray(a), np.asarray(v), err_msg=str(path))
 
-    fresh = MaskFormer(**_port_kwargs(jm))
+    fresh = MaskFormer(**_port_kwargs(jm), device="cpu")
     fresh.load_state_dict({k: torch.from_numpy(np.array(v)) for k, v in sd.items()}, strict=True)
     for k, v in port.state_dict().items():
         torch.testing.assert_close(fresh.state_dict()[k], v, rtol=0, atol=0)
@@ -98,7 +109,7 @@ def test_tiny_slice_matches_jax(tiny, mode):
     batch = _batch(1)
     size = (S, S)
     if mode == "fp64":
-        net = MaskFormer(**_port_kwargs(jm))
+        net = MaskFormer(**_port_kwargs(jm), device="cpu")
         net.load_state_dict(port.state_dict())
         net = net.double().eval()
         with jax.enable_x64(True):
@@ -141,12 +152,13 @@ def test_eval_step_follows_weight_reload(tiny, bf16):
     """A step made before `load_state_dict` runs the new weights after it, in
     both modes: bit-equal to a step made after the reload."""
     jm, port, _ = tiny
-    net = MaskFormer(**_port_kwargs(jm))
+    net = MaskFormer(**_port_kwargs(jm), device="cpu")
     net.load_state_dict(port.state_dict())
     step = make_eval_step(net, (S, S), bf16=bf16)
     batch = _batch(3)
     before = step(batch)
-    net.load_state_dict(init_weights(MaskFormer(**_port_kwargs(jm)), seed=1).state_dict())
+    other = init_weights(MaskFormer(**_port_kwargs(jm), device="cpu"), seed=1)
+    net.load_state_dict(other.state_dict())
     after = step(batch)
     assert not torch.equal(before, after)
     torch.testing.assert_close(after, make_eval_step(net, (S, S), bf16=bf16)(batch), rtol=0, atol=0)
@@ -156,7 +168,8 @@ def test_full_width_r50_fp64():
     """Full-width COMBO-R50 (2 encoder and 2 decoder layers, 5 queries) at
     64^2 in float64: both sides compute the same function to rounding (1e-6
     of max |output|)."""
-    port = init_weights(MaskFormer(dec_layers=2, enc_layers=2, num_queries=5), seed=1).eval()
+    port = init_weights(MaskFormer(dec_layers=2, enc_layers=2, num_queries=5, device="cpu"),
+                        seed=1).eval()
     variables = convert_combo_checkpoint({k: v.numpy() for k, v in port.state_dict().items()},
                                          dec_layers=2, enc_layers=2)
     b = _batch(2, t=1)
