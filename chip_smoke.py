@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's two paths, COMBO-R50 S4 inference and COMBO-R50
-S4 training, on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's paths, COMBO-R50 S4 inference, S4 training and
+the S4 evaluation entry point, on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -12,18 +12,30 @@ non-zero and never prints its last line:
      time of one PyTorch call computing the same function where there is one,
      and the least time the card could take (bound):
        K1 deformable-attention forward (fp32 and bf16 value),
-       K2 its backward, K3/K5 the point-sample forward, K4 its backward;
+       K2 its backward, K3/K5 the point-sample forward, K4 its backward,
+       K7 the fused semantic inference (fp32 and bf16 masks; also the time
+       of F.interpolate alone), K6 the point gather (against torch.gather);
   4. full-width COMBO-R50 S4 (`MaskFormer()` defaults) from a seeded init on
      the card, `make_eval_step` on 3 batches of 4 videos x 5 frames x 224^2 in
-     fp32 and in bf16; K1 must be launched 6 times per forward;
-  5. `make_train_step` on the same model, 1 warm-up and 3 timed steps of
+     fp32 and in bf16; K1 must be launched 6 times and K7 once per batch;
+  5. the eval entry point: a synthetic S4 val tree of 16 videos x 5 frames x
+     224^2 (`data/synth.py`), the model saved as a reference `.pth` and
+     loaded back, `train/evaluate.py::evaluate` at batch 4 in fp32 and bf16
+     (K7 once per batch), once more in fp32 with the plain semantic
+     inference on the card, whose metrics must agree, and once with the
+     metrics on 2 forked worker processes (`COMBO_EVAL_PROCS=2`), whose
+     metrics must be equal;
+  6. `make_train_step` on the same model, 1 warm-up and 3 timed steps of
      8 videos x 5 frames x 224^2, K = 3 target slots, fp32, S4 frame weights:
      finite losses, the frozen tower and FrozenBN unchanged, the decoder
      changed, and each kernel launched as often as the step implies;
-  6. the same weights on the card (TF32 off) against the CPU (plain path):
+  7. the same weights on the card (TF32 off) against the CPU (plain path):
      the inference forward on one 224^2 frame, and the training losses and
      gradients on 1 video x 5 frames x 128^2 with the same injected draws;
-  7. a JSON line of per-kernel results, then the final JSON status line.
+  8. one training step at 12500 points, whose 37500 candidates the
+     stratified selection does not divide, so that K6 runs once per decoder
+     output;
+  9. a JSON line of per-kernel results, then the final JSON status line.
 Without a CUDA device it exits non-zero at once.
 """
 
@@ -66,7 +78,11 @@ DEC_OUTPUTS = 10  # the final prediction and 9 aux ones
 # shape) and the target masks, the criterion the 3x oversampled candidates,
 # the point labels and the point logits (5 forward calls), and the backward
 # takes the point logits' image gradient once; no point ever needs a gradient
-TRAIN_LAUNCHES = {"k1": 6, "k2": 6, "k3": 5 * DEC_OUTPUTS, "k4_dimg": DEC_OUTPUTS, "k4_dxy": 0}
+TRAIN_LAUNCHES = {"k1": 6, "k2": 6, "k3": 5 * DEC_OUTPUTS, "k4_dimg": DEC_OUTPUTS, "k4_dxy": 0,
+                  "k6": 0, "k7": 0}
+# the K6 step: 12500 points give 37500 candidates, not a multiple of the
+# stratified chunk (256), so each decoder output takes top-k and K6
+FALLBACK_POINTS = 12500
 # K2, K4: fp32 atomics add in a run-dependent order, K3/K5 sum four products
 # in another order than the plain version: 1e-5 of max |plain|
 TOL_FP32 = 1e-5
@@ -83,6 +99,24 @@ TRAIN_VS_CPU_SIZE = 128
 LOSS_RTOL_CPU, GRAD_RL2_LEAF, GRAD_RL2_MEDIAN, GRAD_RL2_ALL = 1e-3, 0.15, 0.03, 0.075
 GRAD_FLOOR = 1e-6
 
+# K7 at the eval tail: mask [20, 100, 56, 56] -> [20, 2, 224, 224]
+K7_SHAPE = dict(N=B * T, Q=NUM_QUERIES, C=2, h=MASK_HW, w=MASK_HW)
+# bf16: the plain version rounds the upsampled logits and their sigmoid to
+# bf16 (each at most 2^-9 relative) before its fp32 contraction, the kernel
+# interpolates and takes the sigmoid in fp32 from the same bf16 inputs; the
+# sum over queries of those differences stays within 8e-3 of max |plain|
+K7_TOL_BF16 = 8e-3
+# K6 in the criterion's fallback: M = 120 masks of 3 x 12544 candidate
+# points, 9408 uncertain points each
+K6_SHAPE = dict(G=TRAIN_M, NS=3 * NUM_POINTS, P=3 * NUM_POINTS // 4)
+# the eval entry point: a synthetic S4 val split, evaluated at batch 4
+EVAL_VIDEOS, EVAL_BATCH = 16, 4
+# K7 against the plain tail on the same forward (fp32): the maps differ by
+# fp32 rounding (1e-5 of max |plain|), which can flip a pixel lying within
+# that of the 0.5 threshold; the metrics, rounded to 4 decimals, may move by
+# a few units of the last place
+EVAL_METRIC_ATOL = 1e-3
+
 # the card's published peaks (NVIDIA H100 SXM data sheet, at the 700 W limit):
 # HBM bandwidth and float32 outside the tensor cores
 PEAK_BYTES_PER_S, PEAK_FP32_PER_S = 3.35e12, 67e12
@@ -94,6 +128,8 @@ REPLACES = {
     "k5": "combo_avs_tpu/ops/point_sample_pallas.py:371",
     "k4": "combo_avs_tpu/ops/point_sample_pallas.py:112",
     "k4_dxy": "combo_avs_tpu/ops/point_sample_pallas.py:131",
+    "k6": "combo_avs_tpu/ops/gather_pallas.py:49",
+    "k7": "combo_avs_tpu/ops/seminf_pallas.py:67",
 }
 
 
@@ -116,9 +152,11 @@ def phase_env() -> str:
 
 
 def phase_build() -> None:
-    from combo_avs_torch.ops import _build, deform_attn_cuda, point_sample_cuda
+    from combo_avs_torch.ops import (_build, deform_attn_cuda, gather_cuda, point_sample_cuda,
+                                     seminf_cuda)
 
-    sources = [deform_attn_cuda.SOURCE, deform_attn_cuda.BWD_SOURCE, *point_sample_cuda.SOURCES]
+    sources = [deform_attn_cuda.SOURCE, deform_attn_cuda.BWD_SOURCE, *point_sample_cuda.SOURCES,
+               seminf_cuda.SOURCE, gather_cuda.SOURCE]
     t0 = time.perf_counter()
     _build.load_all(sources)
     dt = time.perf_counter() - t0
@@ -387,6 +425,90 @@ def phase_point_sample(dev: torch.device) -> dict:
     return {"fwd": shapes, **back}
 
 
+def seminf_inputs(N, Q, C, h, w, dtype, device, seed):
+    """cls_sm [N, Q, C] (softmax over C + 1 classes, the last dropped), mask
+    logits [N, Q, h, w] of spread 4 in `dtype`, and a 0/1 temporal mask [N]
+    with most frames on."""
+    rng = np.random.RandomState(seed)
+    logits = rng.randn(N, Q, C + 1)
+    e = np.exp(logits - logits.max(-1, keepdims=True))
+    cls = (e / e.sum(-1, keepdims=True))[..., :C].astype(np.float32)
+    mask = (rng.randn(N, Q, h, w) * 4).astype(np.float32)
+    tm = (rng.rand(N) > 0.2).astype(np.float32)
+    to = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    return to(cls), to(mask).to(dtype), to(tm)
+
+
+def phase_k7(dev: torch.device) -> dict:
+    """K7 against the plain composition at the eval tail's shape (fp32 and
+    bf16 masks) and a ragged one, with the time of the resize alone."""
+    import torch.nn.functional as F
+
+    from combo_avs_torch.ops import seminf_cuda as k
+
+    result = {}
+    cases = [("fp32", torch.float32, K7_SHAPE, (SIZE, SIZE), TOL_FP32),
+             ("bf16", torch.bfloat16, K7_SHAPE, (SIZE, SIZE), K7_TOL_BF16),
+             ("ragged_fp32", torch.float32, dict(N=3, Q=7, C=5, h=5, w=9), (13, 31), TOL_FP32)]
+    with torch.inference_mode():
+        for name, dtype, shp, size, tol in cases:
+            cls, mask, tm = seminf_inputs(shp["N"], shp["Q"], shp["C"], shp["h"], shp["w"],
+                                          dtype, dev, seed=30 + len(name))
+            for temporal in (None, tm):
+                got = k.seminf_cuda(cls, mask, size, temporal)
+                err = compare(f"[k7] {name}{'' if temporal is None else ' temporal'}", got,
+                              k.semantic_inference_plain(cls, mask, size, temporal), tol)
+            if name.startswith("ragged"):
+                continue
+            ms = cuda_time_ms(lambda: k.seminf_cuda(cls, mask, size))
+            plain_ms = cuda_time_ms(lambda: k.semantic_inference_plain(cls, mask, size))
+            resize_ms = cuda_time_ms(lambda: F.interpolate(mask, size=size, mode="bilinear",
+                                                           align_corners=False, antialias=False))
+            # per (pixel, query): the bilinear sample (4 products, 3 sums and
+            # the weights' share), the sigmoid (negate, exp, add, reciprocal)
+            # and a multiply-add per class
+            flops = shp["N"] * size[0] * size[1] * shp["Q"] * (12 + 2 * shp["C"])
+            bd = bound(nbytes(cls, mask) + shp["N"] * shp["C"] * size[0] * size[1] * 4, flops)
+            log(f"[k7] {name}: mask {list(mask.shape)} -> {size}: K7 {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms (F.interpolate alone {resize_ms:.4f} ms), bound "
+                f"{bd['bound_ms']:.4f} ms by {bd['bound_by']} (median of 20)")
+            result[name] = dict(err, ms=ms, plain_ms=plain_ms, resize_ms=resize_ms, **bd)
+    return result
+
+
+def phase_k6(dev: torch.device) -> dict:
+    """K6 against torch.gather, exactly, at the criterion fallback's shape
+    (indices from a top-k, as there) and at a ragged one."""
+    from combo_avs_torch.ops import gather_cuda as k
+
+    result = {}
+    for name, (G, NS, P) in (("train", tuple(K6_SHAPE.values())), ("ragged", (3, 1500, 1001))):
+        g = torch.Generator(device=dev).manual_seed(G)
+        src = torch.rand((G, NS, 2), generator=g, device=dev)
+        idx = torch.topk(torch.randn((G, NS), generator=g, device=dev), P, dim=-1).indices
+        idx[:, 0], idx[:, -1] = 0, NS - 1  # the edge indices
+        got = k.gather_points_cuda(src, idx)
+        want = k.gather_points_plain(src, idx)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"[k6] {name}: differs from torch.gather")
+        log(f"[k6] {name}: [{G}, {NS}, 2] -> {P}: equal to torch.gather")
+        if name != "train":
+            continue
+        ms = cuda_time_ms(lambda: k.gather_points_cuda(src, idx))
+        plain_ms = cuda_time_ms(lambda: k.gather_points_plain(src, idx))
+        idx2 = idx[..., None].expand(-1, -1, 2)
+        lib_ms = cuda_time_ms(lambda: torch.gather(src, 1, idx2))
+        # the index and the output once, and each source point this data
+        # reads (a top-k selects distinct points of its row)
+        touched = int(torch.unique(idx + torch.arange(G, device=dev)[:, None] * NS).numel())
+        bd = bound(nbytes(idx, got) + 8 * touched, 0)
+        log(f"[k6] {name}: K6 {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.gather {lib_ms:.4f} "
+            f"ms, bound {bd['bound_ms']:.4f} ms by {bd['bound_by']} (median of 20)")
+        result = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **bd)
+    return result
+
+
 def _batch(rng, dev):
     """uint8 frames and Maskige, fp32 log-mel, as the loader ships them."""
     return {
@@ -419,19 +541,21 @@ def train_batch(b, size, dev, seed):
 
 
 def reset_counts():
-    from combo_avs_torch.ops import deform_attn_cuda, point_sample_cuda
+    from combo_avs_torch.ops import deform_attn_cuda, gather_cuda, point_sample_cuda, seminf_cuda
 
     deform_attn_cuda.launches = deform_attn_cuda.bwd_launches = 0
     point_sample_cuda.fwd_launches = point_sample_cuda.dimg_launches = 0
     point_sample_cuda.dxy_launches = 0
+    gather_cuda.launches = seminf_cuda.launches = 0
 
 
 def read_counts() -> dict:
-    from combo_avs_torch.ops import deform_attn_cuda, point_sample_cuda
+    from combo_avs_torch.ops import deform_attn_cuda, gather_cuda, point_sample_cuda, seminf_cuda
 
     return {"k1": deform_attn_cuda.launches, "k2": deform_attn_cuda.bwd_launches,
             "k3": point_sample_cuda.fwd_launches, "k4_dimg": point_sample_cuda.dimg_launches,
-            "k4_dxy": point_sample_cuda.dxy_launches}
+            "k4_dxy": point_sample_cuda.dxy_launches, "k6": gather_cuda.launches,
+            "k7": seminf_cuda.launches}
 
 
 def phase_slice(model, smi: str) -> dict:
@@ -464,16 +588,122 @@ def phase_slice(model, smi: str) -> dict:
                 raise AssertionError(f"[slice] {name}: output {tuple(o.shape)} {o.dtype}")
             if not bool(torch.isfinite(o).all()) or float(o.min()) < 0:
                 raise AssertionError(f"[slice] {name}: output not finite and non-negative")
-        if n != 6 * NUM_BATCHES or any(after[k] != before[k] for k in after if k != "k1"):
+        want = {k: before[k] + {"k1": 6, "k7": 1}.get(k, 0) * NUM_BATCHES for k in before}
+        if after != want:
             raise AssertionError(f"[slice] {name}: launches {after} (before {before}) for "
-                                 f"{NUM_BATCHES} forwards, expected {6 * NUM_BATCHES} of K1 only")
+                                 f"{NUM_BATCHES} forwards, expected {want}: K1 6 and K7 1 "
+                                 "per forward")
         fps[name] = NUM_BATCHES * B * T / dt
         log(f"[slice] {name}: {NUM_BATCHES} x [{B}x{T}x{SIZE}^2] -> {tuple(outs[0].shape)} "
             f"range [{float(outs[0].min()):.4f}, {float(outs[0].max()):.4f}], "
-            f"K1 launches {n}, {fps[name]:.1f} frames/s on {smi} "
+            f"K1 launches {n}, K7 {after['k7'] - before['k7']}, {fps[name]:.1f} frames/s on {smi} "
             f"(TF32 matmul {torch.backends.cuda.matmul.allow_tf32}, "
             f"cuDNN {torch.backends.cudnn.allow_tf32})")
     return {"launches": read_counts(), "fps": fps}
+
+
+def phase_eval_entry(model, smi: str) -> dict:
+    """The S4 evaluation entry point at full width: a synthetic val tree,
+    the model through a reference `.pth` and back, `evaluate` at batch 4 in
+    fp32 and bf16 (K7 once per batch, K1 six times), then fp32 again with the
+    plain semantic inference on the card, whose metrics must agree, and fp32
+    with the metrics on COMBO_EVAL_PROCS=2 worker processes forked from this
+    process (which holds a CUDA context), whose metrics must be equal."""
+    import contextlib
+    import os
+    import tempfile
+    from unittest import mock
+
+    from combo_avs_torch.data.catalogs import register_all
+    from combo_avs_torch.data.synth import make_s4
+    from combo_avs_torch.models.meta_arch import MaskFormer
+    from combo_avs_torch.ops import seminf_cuda
+    from combo_avs_torch.train.checkpoint import (load_reference_checkpoint,
+                                                  save_reference_checkpoint)
+    from combo_avs_torch.train.evaluate import evaluate
+
+    batches = -(-EVAL_VIDEOS // EVAL_BATCH)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        make_s4(tmp, 0, EVAL_VIDEOS, size=SIZE)
+        register_all(tmp)
+        path = f"{tmp}/model_best.pth"
+        save_reference_checkpoint(model, path)
+        loaded = MaskFormer()  # on the current CUDA device
+        load_reference_checkpoint(loaded, path)
+        for k, v in model.state_dict().items():
+            if not torch.equal(loaded.state_dict()[k], v):
+                raise AssertionError(f"[eval-entry] {k} changed through the .pth")
+        loaded.eval()
+        log(f"[eval-entry] {EVAL_VIDEOS} synthetic S4 val videos x {T} frames x {SIZE}^2 and "
+            f"the .pth round trip in {time.perf_counter() - t0:.1f} s")
+        runs = (("fp32", False, True, 0), ("bf16", True, True, 0),
+                ("fp32_plain_tail", False, False, 0), ("fp32_procs2", False, True, 2))
+        for name, bf16, fused, procs in runs:
+            # the plain tail: semantic_inference is told the kernel takes no call
+            tail = contextlib.nullcontext() if fused else mock.patch.object(
+                seminf_cuda, "kernel_takes", lambda *a: False)
+            env = mock.patch.dict(os.environ, {"COMBO_EVAL_PROCS": str(procs)})
+            with tail, env:
+                torch.cuda.synchronize()
+                reset_counts()
+                res, tm = evaluate(loaded, "avss4_sem_seg_val", batch_size=EVAL_BATCH, bf16=bf16,
+                                   size=SIZE)
+                counts = read_counts()
+            want = {k: {"k1": 6 * batches, "k7": batches if fused else 0}.get(k, 0)
+                    for k in counts}
+            if counts != want:
+                raise AssertionError(f"[eval-entry] {name}: launches {counts}, expected {want}")
+            m = res["sem_seg"]
+            if not all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in m.values()):
+                raise AssertionError(f"[eval-entry] {name}: metrics out of range: {m}")
+            log(f"[eval-entry] {name}: mIoU {m['mIoU']:.4f}, f_score {m['f_score']:.4f}; "
+                f"{tm['videos']} videos, {tm['frames']} frames in {tm['total_s']:.3f} s "
+                f"(data {tm['data_s']:.3f}, compute {tm['compute_s']:.3f}, eval "
+                f"{tm['eval_s']:.3f}): {tm['videos'] / tm['total_s']:.2f} videos/s, "
+                f"{tm['frames'] / tm['total_s']:.1f} frames/s; launches {counts} on {smi}")
+            out[name] = dict(metrics=m, timing=tm, launches=counts)
+    a, b = out["fp32"]["metrics"], out["fp32_plain_tail"]["metrics"]
+    if any(abs(a[k] - b[k]) > EVAL_METRIC_ATOL for k in a):
+        raise AssertionError(f"[eval-entry] K7 {a} and the plain tail {b} disagree beyond "
+                             f"{EVAL_METRIC_ATOL}")
+    log(f"[eval-entry] K7 against the plain tail, fp32: {a} vs {b} (atol {EVAL_METRIC_ATOL})")
+    if out["fp32_procs2"]["metrics"] != a:
+        raise AssertionError(f"[eval-entry] metrics on 2 worker processes "
+                             f"{out['fp32_procs2']['metrics']} differ from inline {a}")
+    log(f"[eval-entry] metrics on 2 forked worker processes equal the inline ones")
+    return out
+
+
+def phase_train_fallback(model) -> dict:
+    """One full-width training step at FALLBACK_POINTS points: the
+    criterion's uncertain-point selection takes top-k and K6 once per decoder
+    output; the losses must be finite."""
+    from combo_avs_torch.losses.criterion import SetCriterion, build_weight_dict
+    from combo_avs_torch.losses.matcher import HungarianMatcher
+    from combo_avs_torch.train.optim import Optimizer
+    from combo_avs_torch.train.train_step import make_train_step
+
+    dev = next(model.parameters()).device
+    crit = SetCriterion(matcher=HungarianMatcher(num_points=FALLBACK_POINTS),
+                        num_points=FALLBACK_POINTS)
+    step = make_train_step(model, crit, build_weight_dict(), Optimizer(model),
+                           torch.Generator(device=dev).manual_seed(SEED + 4))
+    batch = train_batch(TRAIN_B, SIZE, dev, seed=SEED + 4)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    m = {k: float(v) for k, v in step(batch).items()}
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    if counts["k6"] != DEC_OUTPUTS or not all(np.isfinite(v) for v in m.values()):
+        raise AssertionError(f"[train-k6] launches {counts} (K6 expected {DEC_OUTPUTS}), "
+                             f"total_loss {m['total_loss']}")
+    log(f"[train-k6] one step of [{TRAIN_B}x{T}x{SIZE}^2] at {FALLBACK_POINTS} points: "
+        f"{dt:.3f} s, total_loss {m['total_loss']:.6f}, launches {counts}")
+    return {"launches": counts, "total_loss": m["total_loss"], "s": dt}
 
 
 def phase_train(model, smi: str) -> dict:
@@ -625,6 +855,8 @@ def main() -> int:
     k1 = phase_k1(dev)
     k2 = phase_k2(dev)
     ps = phase_point_sample(dev)
+    k7 = phase_k7(dev)
+    k6 = phase_k6(dev)
 
     from combo_avs_torch.models.layers import init_weights
     from combo_avs_torch.models.meta_arch import MaskFormer
@@ -638,25 +870,32 @@ def main() -> int:
     log(f"[model] MaskFormer() COMBO-R50 S4: {n_params} parameters, seeded init on "
         f"{torch.cuda.get_device_name(0)} in {time.perf_counter() - t0:.1f} s")
     sl = phase_slice(model, smi)
+    ee = phase_eval_entry(model, smi)
     tr = phase_train(model, smi)
     phase_card_vs_cpu(model)
     phase_train_card_vs_cpu(model)
+    # last, so that the card-vs-CPU phases see the weights of the 4 steps above
+    tf = phase_train_fallback(model)
 
-    ev, tl = sl["launches"], tr["launches"]
+    ev, tl, fb = sl["launches"], tr["launches"], tf["launches"]
+    entry = {k: ee["fp32"]["launches"][k] + ee["bf16"]["launches"][k] for k in ("k1", "k7")}
     fwd = ps["fwd"]
     per_layer = {k: sum(s[k] for s in fwd) for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                                                      "bytes", "flops")}
     kernels = [
         kernel_entry("ms_deform_attn_fwd", "combo_avs_torch/csrc/ms_deform_attn_fwd.cu",
-                     REPLACES["k1"], {"eval": ev["k1"], "train": tl["k1"]}, k1["fp32"],
+                     REPLACES["k1"], {"eval": ev["k1"], "eval_entry": entry["k1"],
+                                       "train": tl["k1"], "train_fallback": fb["k1"]}, k1["fp32"],
                      shape="value [20,1029,8,32] fp32", max_abs_err_bf16=k1["bf16"]["max_abs_err"],
                      ms_bf16=k1["bf16"]["ms"], plain_ms_bf16=k1["bf16"]["plain_ms"],
                      bound_ms_bf16=k1["bf16"]["bound_ms"]),
         kernel_entry("ms_deform_attn_bwd", "combo_avs_torch/csrc/ms_deform_attn_bwd.cu",
-                     REPLACES["k2"], {"eval": ev["k2"], "train": tl["k2"]}, k2,
+                     REPLACES["k2"], {"eval": ev["k2"], "train": tl["k2"],
+                                       "train_fallback": fb["k2"]}, k2,
                      shape="value [40,1029,8,32] fp32"),
         kernel_entry("point_sample_fwd", "combo_avs_torch/csrc/point_sample_fwd.cu",
-                     REPLACES["k3"], {"eval": ev["k3"], "train": tl["k3"]},
+                     REPLACES["k3"], {"eval": ev["k3"], "train": tl["k3"],
+                                       "train_fallback": fb["k3"]},
                      dict(per_layer, max_abs_err=max(s["max_abs_err"] for s in fwd),
                           bound_by="bytes" if per_layer["bytes"] / PEAK_BYTES_PER_S
                           >= per_layer["flops"] / PEAK_FP32_PER_S else "operations"),
@@ -666,17 +905,30 @@ def main() -> int:
                                                "library_ms", "bound_ms", "bound_by",
                                                "max_abs_err")} for s in fwd]),
         kernel_entry("point_sample_bwd_dimg", "combo_avs_torch/csrc/point_sample_bwd.cu",
-                     REPLACES["k4"], {"eval": ev["k4_dimg"], "train": tl["k4_dimg"]}, ps["dimg"],
+                     REPLACES["k4"], {"eval": ev["k4_dimg"], "train": tl["k4_dimg"],
+                                       "train_fallback": fb["k4_dimg"]}, ps["dimg"],
                      shape="dout [120,12544,1] into [120,56,56,1]",
                      also_replaces=REPLACES["k4_dxy"],
-                     dxy_launches={"eval": ev["k4_dxy"], "train": tl["k4_dxy"]},
+                     dxy_launches={"eval": ev["k4_dxy"], "train": tl["k4_dxy"],
+                                   "train_fallback": fb["k4_dxy"]},
                      **{f"dxy_{k}": ps["dxy"][k] for k in ("max_abs_err", "ms", "plain_ms",
                                                            "library_ms", "bound_ms", "bound_by")}),
+        kernel_entry("seminf_fwd", "combo_avs_torch/csrc/seminf_fwd.cu", REPLACES["k7"],
+                     {"eval": ev["k7"], "eval_entry": entry["k7"], "train": tl["k7"]}, k7["fp32"],
+                     shape="mask [20,100,56,56] fp32 -> [20,2,224,224]",
+                     resize_ms=k7["fp32"]["resize_ms"], max_abs_err_bf16=k7["bf16"]["max_abs_err"],
+                     ms_bf16=k7["bf16"]["ms"], plain_ms_bf16=k7["bf16"]["plain_ms"],
+                     resize_ms_bf16=k7["bf16"]["resize_ms"], bound_ms_bf16=k7["bf16"]["bound_ms"]),
+        kernel_entry("gather_points", "combo_avs_torch/csrc/gather.cu", REPLACES["k6"],
+                     {"eval": ev["k6"], "train": tl["k6"], "train_fallback": fb["k6"]}, k6,
+                     shape="src [120,37632,2] fp32, idx [120,9408] int64"),
     ]
     log(json.dumps({"train": {"s_per_step": tr["s_per_step"], "step_times_s": tr["times"],
                               "max_memory_allocated": tr["peak_bytes"],
                               "shape": f"{TRAIN_B}x{T}x{SIZE}^2 K={TRAIN_K} fp32"},
-                    "eval_fps": sl["fps"], "card": smi}))
+                    "eval_fps": sl["fps"], "card": smi,
+                    "eval_entry": {k: {"metrics": v["metrics"], "timing": v["timing"]}
+                                   for k, v in ee.items()}}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,83 @@
+"""Dataset catalogs: walk the AVSBench S4 directory layout and register
+per-video records.
+
+Port of the S4 part of `combo_avs_tpu/data/catalogs.py`
+(`load_avss4_records`, `register_all`; ref:
+models/data/datasets/register_avss4_sem.py): visual_frames/<split>/
+<category>/<video>/*.png, gt_masks alike, audio_log_mel/<split>/<category>/
+<video>.pkl and pre_SAM_mask/<split>/<category>/<video>/*_mask_color.png;
+the train split annotates only the first frame (ref :18,49-52). Records are
+plain dicts, equal key for key to the JAX package's. MS3 and AVSS are not
+ported yet.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Callable, Dict, List, Optional
+
+DatasetCatalog: Dict[str, Callable[[], List[dict]]] = {}
+MetadataCatalog: Dict[str, dict] = {}
+
+S4_METADATA = {"stuff_classes": ["background", "object"], "ignore_label": 255,
+               "evaluator_type": "sem_seg", "num_frames": 5}
+
+
+def register(name: str, fn: Callable[[], List[dict]], metadata: dict) -> None:
+    DatasetCatalog[name] = fn
+    MetadataCatalog[name] = metadata
+
+
+def _png_sorted(d: str) -> List[str]:
+    return sorted(os.path.join(d, f) for f in os.listdir(d) if f.endswith((".png", ".jpg")))
+
+
+def load_avss4_records(root: str, split: str, pre_mask_root: Optional[str] = None) -> List[dict]:
+    """root: .../Single-source/s4_data. Returns one record per video."""
+    frame_root = os.path.join(root, "visual_frames", split)
+    records = []
+    for category in sorted(os.listdir(frame_root)):
+        cdir = os.path.join(frame_root, category)
+        if not os.path.isdir(cdir):
+            continue
+        for video in sorted(os.listdir(cdir)):
+            mask_dir = os.path.join(root, "gt_masks", split, category, video)
+            masks = _png_sorted(mask_dir) if os.path.isdir(mask_dir) else []
+            if split == "train":
+                masks = masks[:1]  # only the first frame is annotated
+            rec = {
+                "video": video,
+                "category": category,
+                "file_names": _png_sorted(os.path.join(cdir, video)),
+                "sem_seg_file_names": masks,
+                "audio_file_name": os.path.join(root, "audio_log_mel", split, category,
+                                                f"{video}.pkl"),
+                "num_frames": 5,
+                "gt_temporal_mask_flag": [1] + [0] * 4 if split == "train" else [1] * 5,
+                "vid_temporal_mask_flag": [1] * 5,
+            }
+            if pre_mask_root:
+                pdir = os.path.join(pre_mask_root, split, category, video)
+                if os.path.isdir(pdir):
+                    rec["pre_mask_file_names"] = [
+                        p for p in _png_sorted(pdir) if p.endswith("_mask_color.png")]
+            records.append(rec)
+    return records
+
+
+def register_all(datasets_root: str) -> None:
+    """Register avss4_sem_seg_{train,val,test}, with the pre-SAM Maskiges
+    COMBO takes, under a dataset root: either a parent holding
+    Single-source/s4_data, or the reference's per-benchmark root that points
+    at .../Single-source itself (ref: register_avss4_sem.py:117-119)."""
+    norm = datasets_root.rstrip("/")
+    s4_root = next((c for c in (
+        os.path.join(datasets_root, "Single-source", "s4_data"),
+        os.path.join(norm, "s4_data") if norm.endswith("Single-source") else None,
+    ) if c and os.path.isdir(c)), None)
+    if s4_root is None:
+        return
+    pre = os.path.join(s4_root, "pre_SAM_mask")
+    for split in ("train", "val", "test"):
+        register(f"avss4_sem_seg_{split}",
+                 lambda s=split: load_avss4_records(s4_root, s, pre), dict(S4_METADATA))

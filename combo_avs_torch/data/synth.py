@@ -1,0 +1,133 @@
+"""Synthetic AVSBench S4 tree on disk, written without cv2.
+
+The S4 part of `scripts/make_synth_dataset.py` (`make_s4` and its helpers),
+with the port's PNG encoder: 5-frame videos of frames, Maskiges, GT masks and
+pickled log-mels in the exact layout `data/catalogs.py` walks
+(ref: models/data/datasets/register_avss4_sem.py:17-58). The content is
+learnable, not noise: each of 10 categories is a (shape, colour, audio band)
+triple drifting over a smooth textured background. The background is a
+bicubic upsample of 14 x 14 noise, as the JAX package's script makes it,
+though not bit for bit (PyTorch's bicubic, not cv2's).
+
+    python -m combo_avs_torch.data.synth --root DIR [--s4-train 96] [--s4-val 48] [--size 224]
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import pickle
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from combo_avs_torch.data.png import write_png
+
+N_CATEGORIES = 10
+FRAME = 224
+
+
+def _palette(n: int, seed: int) -> np.ndarray:
+    return np.random.RandomState(seed).randint(40, 255, (n, 3)).astype(np.uint8)
+
+
+CAT_COLORS = _palette(N_CATEGORIES, seed=7)
+MASKIGE_COLORS = _palette(N_CATEGORIES + 1, seed=11)
+
+
+def _background(rng: np.random.RandomState, size: int) -> np.ndarray:
+    """A smooth textured background (PNG entropy like a photo's, unlike a
+    flat fill): bicubic 14 x 14 noise plus fine noise, saturating at 255."""
+    small = rng.randint(0, 256, (14, 14, 3), np.uint8)
+    up = F.interpolate(torch.from_numpy(small).permute(2, 0, 1)[None].double(),
+                       size=(size, size), mode="bicubic", align_corners=False)
+    bg = up[0].permute(1, 2, 0).round().clamp(0, 255).numpy().astype(np.int32)
+    noise = rng.randint(0, 25, (size, size, 3), np.uint8)
+    return np.minimum(bg + noise, 255).astype(np.uint8)
+
+
+def _shape_mask(cat: int, cx: int, cy: int, r: int, size: int) -> np.ndarray:
+    """A filled disc (even categories) or square (odd ones), 255 inside."""
+    yy, xx = np.mgrid[:size, :size]
+    if cat % 2 == 0:
+        inside = (xx - cx) ** 2 + (yy - cy) ** 2 <= r * r
+    else:
+        inside = (np.abs(xx - cx) <= r) & (np.abs(yy - cy) <= r)
+    return inside.astype(np.uint8) * 255
+
+
+def _video_frames(rng: np.random.RandomState, cat: int, T: int, size: int):
+    """T frames of one video: the category's shape drifting over a fixed
+    background. Returns (frames, masks_u8, maskiges)."""
+    s = size / FRAME
+    bg = _background(rng, size)
+    cx, cy = rng.randint(int(60 * s), size - int(60 * s), 2)
+    r = int(rng.randint(25, 55) * s)
+    dx, dy = rng.randint(-4, 5, 2)
+    color = CAT_COLORS[cat]
+    frames, masks, maskiges = [], [], []
+    for t in range(T):
+        m = _shape_mask(cat, int(cx + dx * t * s), int(cy + dy * t * s), r, size)
+        img = bg.copy()
+        img[m > 0] = (0.85 * color + 0.15 * img[m > 0]).astype(np.uint8)
+        mg = np.zeros((size, size, 3), np.uint8)
+        mg[:] = MASKIGE_COLORS[-1] // 4  # dim background segment
+        mg[m > 0] = MASKIGE_COLORS[cat]
+        frames.append(img)
+        masks.append(m)
+        maskiges.append(mg)
+    return frames, masks, maskiges
+
+
+def _mel(rng: np.random.RandomState, cat: int, T: int) -> np.ndarray:
+    """[T, 1, 96, 64] log-mel with a category-specific band."""
+    mel = rng.randn(T, 1, 96, 64).astype(np.float32) * 0.3 - 3.0
+    band = 4 + cat * 6
+    mel[:, :, :, band:band + 5] += 2.5
+    return mel
+
+
+def _write(path: str, img: np.ndarray) -> None:
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    write_png(path, img)
+
+
+def make_s4(root: str, n_train: int, n_val: int, size: int = FRAME) -> str:
+    """Write the S4 train and val splits under `root`; returns the s4_data
+    directory. Train videos carry GT for their first frame only."""
+    s4 = os.path.join(root, "Single-source", "s4_data")
+    rng = np.random.RandomState(0)
+    for split, n in (("train", n_train), ("val", n_val)):
+        for v in range(n):
+            cat_id = v % N_CATEGORIES
+            cat = f"cat{cat_id:02d}"
+            vid = f"{split}_v{v:04d}"
+            frames, masks, maskiges = _video_frames(rng, cat_id, 5, size)
+            n_gt = 1 if split == "train" else 5
+            for t in range(5):
+                name = f"{vid}_{t + 1}"
+                _write(os.path.join(s4, "visual_frames", split, cat, vid, f"{name}.png"), frames[t])
+                _write(os.path.join(s4, "pre_SAM_mask", split, cat, vid, f"{name}_mask_color.png"),
+                       maskiges[t])
+                if t < n_gt:
+                    _write(os.path.join(s4, "gt_masks", split, cat, vid, f"{name}.png"), masks[t])
+            mel_path = os.path.join(s4, "audio_log_mel", split, cat, f"{vid}.pkl")
+            os.makedirs(os.path.dirname(mel_path), exist_ok=True)
+            with open(mel_path, "wb") as f:
+                pickle.dump(_mel(rng, cat_id, 5), f)
+    return s4
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description="write a synthetic AVSBench S4 tree")
+    ap.add_argument("--root", required=True)
+    ap.add_argument("--s4-train", type=int, default=96)
+    ap.add_argument("--s4-val", type=int, default=48)
+    ap.add_argument("--size", type=int, default=FRAME)
+    args = ap.parse_args()
+    print(make_s4(args.root, args.s4_train, args.s4_val, args.size))
+
+
+if __name__ == "__main__":
+    main()

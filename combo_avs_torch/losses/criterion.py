@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from combo_avs_torch.losses.matcher import HungarianMatcher
+from combo_avs_torch.ops.gather_cuda import gather_points, gather_points_plain
 from combo_avs_torch.ops.grid_sample import point_sample
 
 # Chunk width of the stratified uncertain-point selection (the JAX package's
@@ -69,9 +70,12 @@ def uncertainty_sampled_points(mask_logits: torch.Tensor, candidates: torch.Tens
     `num_points * importance_sample_ratio` where |mask logit| is smallest,
     then the random `tail`; returns [M, num_points, 2], carrying no gradient.
 
-    On a CUDA tensor the selection is the stratified one (as the JAX package
-    on an accelerator) whenever the shapes divide and `exact_topk` is False;
-    otherwise, and always on the CPU, it is the exact top-k."""
+    On a CUDA tensor with `exact_topk` False the selection is the JAX
+    package's on an accelerator: the stratified one whenever the shapes
+    divide, else the top-k followed by the gather kernel (K6). The JAX
+    package takes `approx_max_k` there (recall target 0.95); `torch.topk` is
+    exact, so it meets that target by construction. Otherwise, and always on
+    the CPU, it is the exact top-k and `torch.gather`."""
     n_uncertain = int(num_points * importance_sample_ratio)
     with torch.no_grad():
         logits = point_sample(mask_logits[..., None], candidates)[..., 0]  # [M, NS]
@@ -80,7 +84,7 @@ def uncertainty_sampled_points(mask_logits: torch.Tensor, candidates: torch.Tens
             top = stratified_uncertain_coords(logits, candidates, *strat)
         else:
             idx = torch.topk(-logits.abs(), n_uncertain, dim=-1).indices
-            top = torch.gather(candidates, 1, idx[..., None].expand(-1, -1, 2))
+            top = (gather_points_plain if exact_topk else gather_points)(candidates, idx)
         return torch.cat([top, tail.to(top.dtype)], dim=1)
 
 

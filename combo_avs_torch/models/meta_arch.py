@@ -23,13 +23,14 @@ from __future__ import annotations
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from combo_avs_torch.models.head import MaskFormerHead
 from combo_avs_torch.models.layers import SqueezeExcite
 from combo_avs_torch.models.resnet import ResNet
 from combo_avs_torch.models.vggish import VGGish
+from combo_avs_torch.ops import seminf_cuda
+from combo_avs_torch.ops.seminf_cuda import _upcast32
 
 PIXEL_MEAN = (123.675, 116.280, 103.530)
 PIXEL_STD = (58.395, 57.120, 57.375)
@@ -121,15 +122,16 @@ def semantic_inference(
     mask_cls: torch.Tensor,  # [N, Q, C+1]
     mask_pred: torch.Tensor,  # [N, Q, h, w]
     out_size: Optional[Tuple[int, int]] = None,
+    temporal_mask: Optional[torch.Tensor] = None,  # [N]
 ) -> torch.Tensor:
     """softmax(cls)[..., :-1] x sigmoid(mask) semantic maps, optionally
-    upsampled; returns [N, C, H, W] float32. The upsampled [N, Q, H, W] masks
-    stay in the input type (bf16 on the bf16 path); the Q-contraction is
-    float32."""
-    cls = mask_cls.float().softmax(-1)[..., :-1]
-    if out_size is not None:
-        mask_pred = F.interpolate(mask_pred, size=tuple(out_size), mode="bilinear",
-                                  align_corners=False, antialias=False)
-    N, Q, H, W = mask_pred.shape
-    sig = mask_pred.sigmoid().reshape(N, Q, H * W).float()
-    return torch.bmm(cls.transpose(1, 2), sig).reshape(N, -1, H, W)
+    upsampled and weighted per frame by `temporal_mask`; returns [N, C, H, W]
+    float32. On a CUDA tensor with at most `seminf_cuda.MAX_C` classes and an
+    upsampling `out_size` the fused kernel computes it; otherwise, and always
+    on the CPU, the plain composition (`seminf_cuda.semantic_inference_plain`)."""
+    cls = _upcast32(mask_cls).softmax(-1)[..., :-1]
+    if mask_pred.is_cuda and seminf_cuda.kernel_takes(cls.shape[-1], mask_pred.shape[2:],
+                                                      out_size):
+        return seminf_cuda.seminf_cuda(cls, mask_pred, out_size, temporal_mask)
+    return seminf_cuda.semantic_inference_plain(cls, mask_pred, out_size,
+                                                temporal_mask).float()

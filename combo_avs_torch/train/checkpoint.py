@@ -1,4 +1,13 @@
-"""JAX-package variables -> the port's state dict (numpy only).
+"""Checkpoints: reference `.pth` / `.pkl` files into the port's model, and
+JAX-package variables into the port's state dict.
+
+`load_reference_checkpoint` reads a reference checkpoint (`model_best.pth`,
+or a d2-style `.pkl`) as `combo_avs_tpu/train/checkpoint.py::load_torch_file`
+reads it, and loads it into a `MaskFormer` by the reference key names, which
+the port's modules carry. A file that holds the visual tower but not the
+pre-SAM one fills both from it (`fan_out_siamese`). The criterion's keys
+are dropped; the rest are checked strictly: a missing or an unexpected key
+raises.
 
 `state_dict_from_flax` is the inverse of
 `combo_avs_tpu/train/checkpoint.py::convert_combo_checkpoint` for the ResNet
@@ -11,15 +20,19 @@ parameters (stacked on a leading layer axis) unstacked into one key per layer.
 
 from __future__ import annotations
 
+import pickle
 from typing import Dict
 
 import numpy as np
+import torch
 
 # conv positions in the torchvggish Sequential, and linear positions in the
 # [Linear, ReLU] x 3 embeddings / AudioMLP Sequentials
 _VGG_CONV_IDS = (0, 3, 6, 8, 11, 13)
 _FC_IDS = (0, 2, 4)
 _NORM_LEAF = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
+# the reference MaskFormer's submodules that only training uses
+TRAINING_ONLY = ("criterion.",)
 
 
 def _conv(k):  # HWIO -> OIHW
@@ -148,3 +161,54 @@ def state_dict_from_flax(variables: Dict, dec_layers: int = 9, enc_layers: int =
     _embeddings(sd, "sem_seg_head.audio_transformation.", head["audio_transformation"])
     _predictor(sd, "sem_seg_head.predictor.", head["predictor"], dec_layers)
     return sd
+
+
+def load_reference_file(path: str) -> Dict[str, np.ndarray]:
+    """A `.pth` (torch pickle) or `.pkl` (plain or Caffe2 pickle) -> flat
+    {name: numpy array}: the `model` (or `state_dict`) entry when there is
+    one, without `__`-prefixed metadata and entries that are not arrays.
+    Checkpoints are trusted input: unpickling runs whatever the file holds."""
+    if path.endswith(".pkl"):
+        with open(path, "rb") as f:
+            obj = pickle.load(f, encoding="latin1")
+    else:
+        obj = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(obj, dict) and isinstance(obj.get("model"), dict):
+        obj = obj["model"]
+    if isinstance(obj, dict) and "state_dict" in obj:
+        obj = obj["state_dict"]
+    return {k: v.detach().cpu().numpy() if hasattr(v, "detach") else np.asarray(v)
+            for k, v in obj.items() if not k.startswith("__") and hasattr(v, "shape")}
+
+
+def fan_out_siamese(sd: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """One backbone fills both towers: without `pre_sam_backbone.*` keys, the
+    pre-SAM tower takes a copy of `backbone.*` (ref README.md:49-62)."""
+    if any(k.startswith("pre_sam_backbone.") for k in sd):
+        return sd
+    tower = {f"pre_sam_{k}": v.copy() for k, v in sd.items() if k.startswith("backbone.")}
+    return {**sd, **tower}
+
+
+def load_reference_checkpoint(model: torch.nn.Module, path: str) -> None:
+    """Load a reference checkpoint file into `model` in place, on the
+    model's device and in its parameters' type. The reference model carries
+    its training criterion (`criterion.empty_weight`), which inference does
+    not use and `convert_combo_checkpoint` does not read: `criterion.*` keys
+    are dropped. Raises ValueError naming the missing and unexpected keys
+    when the rest of the file does not cover the model exactly."""
+    sd = fan_out_siamese({k: v for k, v in load_reference_file(path).items()
+                          if not k.startswith(TRAINING_ONLY)})
+    own = model.state_dict()
+    missing, unexpected = sorted(set(own) - set(sd)), sorted(set(sd) - set(own))
+    if missing or unexpected:
+        raise ValueError(f"{path}: {len(missing)} missing keys {missing[:8]}, "
+                         f"{len(unexpected)} unexpected keys {unexpected[:8]}")
+    model.load_state_dict({k: torch.from_numpy(np.array(v)).to(own[k].dtype)
+                           for k, v in sd.items()}, strict=True)
+
+
+def save_reference_checkpoint(model: torch.nn.Module, path: str) -> None:
+    """Write the model as a d2-style checkpoint, {"model": state dict} of
+    CPU tensors under the reference key names."""
+    torch.save({"model": {k: v.detach().cpu() for k, v in model.state_dict().items()}}, path)

@@ -1,0 +1,216 @@
+"""The S4 evaluation loop: dataset records in, the reference's mIoU and
+F-score out.
+
+Port of the device half of `combo_avs_tpu/train/trainer.py::evaluate`
+(ref: models/evaluation/evaluator.py:106-255 inference_on_dataset): the
+loader's batches, bucketed by frame count and each bucket padded to whole
+batches with duplicates that are computed but never scored; only the four model inputs go
+to the card, copied from pinned host memory without blocking; the reference's
+three timers (data, compute, eval) and its log lines; the per-video
+postprocess and metrics inline or, with `COMBO_EVAL_PROCS=N`, on N worker
+processes whose partial evaluators are merged; and the results written to
+`<output_dir>/inference/<dataset>/sem_seg_evaluation.pth`.
+
+The worker pool forks its workers before the loader's threads exist (spawn
+would re-import the caller's `__main__`); the workers run numpy and CPU
+torch only, on one thread, and never touch CUDA. A worker that returns
+nothing within 600 s (a lock held across the fork) is
+killed with the rest of the pool before the error is raised, so no child
+outlives a failed evaluation.
+"""
+
+from __future__ import annotations
+
+import collections
+import logging
+import multiprocessing
+import os
+import time
+import warnings
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from combo_avs_torch.data.catalogs import DatasetCatalog, MetadataCatalog
+from combo_avs_torch.data.loader import eval_loader
+from combo_avs_torch.data.mappers import AVSSemanticDatasetMapper
+from combo_avs_torch.evaluation.evaluator import SemSegEvaluator, eval_video_partial
+from combo_avs_torch.evaluation.postprocess import crop_and_resize_gt, sem_seg_postprocess
+from combo_avs_torch.train.train_step import make_eval_step
+
+logger = logging.getLogger("COMBO")
+
+MODEL_INPUTS = ("images", "audio_log_mel", "pre_masks", "vid_temporal_mask")
+
+
+def _worker_init() -> None:
+    # a forked child must not use the parent's intra-op thread pool
+    torch.set_num_threads(1)
+
+
+class MetricPool:
+    """`procs` forked workers running `eval_video_partial`; results are
+    merged in submission order, at most `4 * procs` videos in flight."""
+
+    def __init__(self, procs: int, timeout: float = 600.0):
+        self.procs, self.timeout = procs, timeout
+        with warnings.catch_warnings():
+            # Python 3.12 warns on fork with threads alive (CUDA's, torch's);
+            # the children run numpy and CPU torch only
+            warnings.simplefilter("ignore", DeprecationWarning)
+            self._pool = multiprocessing.get_context("fork").Pool(procs, initializer=_worker_init)
+        self._pending: collections.deque = collections.deque()
+
+    def submit(self, fn, *args) -> None:
+        self._pending.append(self._pool.apply_async(fn, args))
+
+    def drain(self, evaluator: SemSegEvaluator, keep: int = 0) -> None:
+        """Merge finished results, oldest first, until `keep` are in flight."""
+        while len(self._pending) > keep:
+            res = self._pending.popleft()
+            try:
+                evaluator.merge(res.get(timeout=self.timeout))
+            except multiprocessing.TimeoutError:
+                self.kill()
+                raise RuntimeError(
+                    f"COMBO_EVAL_PROCS metric worker returned nothing within {self.timeout:.0f} s "
+                    "(a lock held across fork?); its workers were killed. Re-run with "
+                    "COMBO_EVAL_PROCS=0 to compute the metrics inline.") from None
+
+    def kill(self) -> None:
+        """Terminate every worker now and reap them."""
+        self._pool.terminate()
+        self._pool.join()
+
+    def close(self) -> None:
+        self._pool.close()
+        self._pool.join()
+
+
+def _to_device(x: np.ndarray, device: torch.device) -> torch.Tensor:
+    t = torch.from_numpy(np.ascontiguousarray(x))
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def evaluate(model: torch.nn.Module, dataset_name: str, batch_size: int = 1,
+             max_videos: Optional[int] = None, bf16: bool = False, size: int = 224,
+             output_dir: str = "") -> Tuple[Dict, Dict]:
+    """Evaluate `model` (on its own device) over the registered dataset.
+    Returns ({"sem_seg": {"mIoU", "f_score"}}, timing), timing holding the
+    wall, data, compute and eval seconds and the counts of real videos and
+    frames. `size` is INPUT.SIZE_DIVISIBILITY, the padded frame size."""
+    if MetadataCatalog[dataset_name].get("evaluator_type") != "sem_seg":
+        raise NotImplementedError(f"{dataset_name}: only the S4/MS3 evaluator is ported")
+    records = DatasetCatalog[dataset_name]()
+    if max_videos:
+        records = records[:max_videos]
+    mapper = AVSSemanticDatasetMapper(size_divisibility=size)
+    evaluator = SemSegEvaluator()
+    step = make_eval_step(model, out_size=(size, size), bf16=bf16)
+    device = next(model.parameters()).device
+    n_devices = torch.cuda.device_count() if device.type == "cuda" else 1
+
+    eval_procs = int(os.environ.get("COMBO_EVAL_PROCS", "0") or 0)
+    pool = MetricPool(eval_procs) if eval_procs > 0 else None
+    n_videos_total, n_done, n_pad, n_frames = len(records), 0, 0, 0
+    t_compute = t_data = t_eval = 0.0
+    t0 = t_mark = t_log = time.perf_counter()
+    try:
+        for batch, recs in eval_loader(records, mapper, batch_size=batch_size,
+                                       pad=batch_size > 1):
+            t_data += time.perf_counter() - t_mark
+            tc = time.perf_counter()
+            if "pre_masks" not in batch:
+                raise ValueError(f"{dataset_name}: videos without pre-SAM Maskiges; COMBO "
+                                 "needs them")
+            inputs = {k: _to_device(batch[k], device) for k in MODEL_INPUTS if k in batch}
+            sem = step(inputs).cpu().numpy()
+            t_compute += time.perf_counter() - tc
+            real = sum(not r.get("_pad") for r in recs)
+            n_done, n_pad = n_done + real, n_pad + len(recs) - real
+            now = time.perf_counter()
+            if now - t_log >= 5.0 and n_done < n_videos_total:
+                per_video = (now - t0) / n_done
+                eta = int(per_video * (n_videos_total - n_done))
+                logger.info("Inference done %d/%d. Dataloading: %.4f s/video. Inference: %.4f "
+                            "s/video. Eval: %.4f s/video. Total: %.4f s/video. "
+                            "ETA=%d:%02d:%02d", n_done, n_videos_total, t_data / n_done,
+                            t_compute / n_done, t_eval / n_done, per_video, eta // 3600,
+                            eta % 3600 // 60, eta % 60)
+                t_log = now
+            te = time.perf_counter()
+            B, T = batch["images"].shape[:2]
+            sem = sem.reshape(B, T, *sem.shape[1:])
+            for b in range(B):
+                if recs[b].get("_pad"):
+                    continue
+                hw = (int(batch["image_size"][b][0]), int(batch["image_size"][b][1]))
+                oh, ow = int(batch["height"][b]), int(batch["width"][b])
+                if pool is not None:
+                    pool.submit(eval_video_partial, sem[b], batch["sem_segs"][b], hw, oh, ow)
+                    pool.drain(evaluator, keep=4 * eval_procs)
+                    continue
+                evaluator.process(sem_seg_postprocess(sem[b], hw, oh, ow),
+                                  crop_and_resize_gt(batch["sem_segs"][b], hw, oh, ow))
+            n_frames += T * real
+            t_eval += time.perf_counter() - te
+            t_mark = time.perf_counter()
+        if pool is not None:
+            te = time.perf_counter()
+            pool.drain(evaluator)
+            pool.close()
+            pool = None
+            t_eval += time.perf_counter() - te
+    finally:
+        if pool is not None:  # an error above: no worker outlives it
+            pool.kill()
+
+    total = time.perf_counter() - t0
+    if n_pad:
+        logger.info("Eval padding: %d duplicate videos of %d total (%.1f%% of compute) to "
+                    "fill batch_size=%d buckets", n_pad, n_done + n_pad,
+                    100.0 * n_pad / (n_done + n_pad), batch_size)
+    n_iter = max(n_frames, 1)
+    for what, secs in (("inference", total), ("inference pure compute", t_compute),
+                       ("eval (postprocess+metrics)", t_eval)):
+        logger.info("Total %s time: %.6f s (%.6f s / iter per device, on %d devices)",
+                    what, secs, secs / n_iter, n_devices)
+    results = evaluator.evaluate()
+    if output_dir:
+        inference_dir = os.path.join(output_dir, "inference", dataset_name)
+        os.makedirs(inference_dir, exist_ok=True)
+        torch.save(results["sem_seg"], os.path.join(inference_dir, "sem_seg_evaluation.pth"))
+        print_csv_format(results)
+    timing = {"total_s": total, "data_s": t_data, "compute_s": t_compute, "eval_s": t_eval,
+              "videos": n_done, "frames": n_frames}
+    return results, timing
+
+
+def verify_results(results: Dict, expected: Sequence = ()) -> bool:
+    """d2's verify_results: each [task, metric, expected, tolerance] of
+    `expected` (the config's TEST.EXPECTED_RESULTS) must hold; raises
+    AssertionError otherwise."""
+    ok = True
+    for task, metric, want, tolerance in expected:
+        actual = results[task][metric]
+        good = abs(actual - want) <= tolerance
+        ok = ok and good
+        logger.info("%s: %s = %.4f (expected %.4f +/- %.4f) %s", task, metric, actual, want,
+                    tolerance, "OK" if good else "FAILED")
+    if not ok:
+        raise AssertionError(f"Result verification failed: {list(expected)}")
+    if expected:
+        logger.info("Results verification passed.")
+    return ok
+
+
+def print_csv_format(results: Dict) -> None:
+    """d2's print_csv_format: greppable 'copypaste:' lines per task."""
+    for task, metrics in results.items():
+        logger.info("Evaluation results for %s:", task)
+        logger.info("copypaste: Task: %s", task)
+        logger.info("copypaste: %s", ",".join(metrics.keys()))
+        logger.info("copypaste: %s", ",".join(f"{v:.4f}" for v in metrics.values()))

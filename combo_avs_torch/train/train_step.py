@@ -104,7 +104,8 @@ def _tensors(module: torch.nn.Module):
 def make_eval_step(model: torch.nn.Module, out_size: Tuple[int, int],
                    bf16: bool = False) -> Callable[[Dict], torch.Tensor]:
     """Returns `step(batch) -> [B*T, C, H, W]` float32 semantic maps at
-    `out_size`.
+    `out_size`, weighted per frame by the batch's `vid_temporal_mask` [B, T]
+    when it has one.
 
     bf16=True runs the whole forward in bfloat16: parameters, frozen buffers
     and inputs (the deformable-attention kernel still accumulates in fp32).
@@ -134,8 +135,10 @@ def make_eval_step(model: torch.nn.Module, out_size: Tuple[int, int],
         try:
             with torch.inference_mode():
                 outputs = net(*_model_inputs(batch, dtype, device))
-                return semantic_inference(outputs["pred_logits"], outputs["pred_masks"],
-                                          out_size=out_size)
+                vid = batch.get("vid_temporal_mask")
+                return semantic_inference(
+                    outputs["pred_logits"], outputs["pred_masks"], out_size=out_size,
+                    temporal_mask=None if vid is None else _to(vid, device).reshape(-1))
         finally:
             net.train(was_training)
 

@@ -16,7 +16,7 @@ from combo_avs_tpu.ops.deform_attn import ms_deform_attn as jax_ms_deform_attn
 from combo_avs_tpu.ops.deform_attn_pallas import _backward_hfuse, _forward_hfuse
 from combo_avs_torch.ops import deform_attn_cuda
 from combo_avs_torch.ops.deform_attn import ms_deform_attn_plain
-from tests.test_torch_slice import one_torch_thread  # noqa: F401 (autouse fixture)
+from tests.test_torch_slice import one_torch_thread, release_worker_memory  # noqa: F401 (autouse fixtures)
 
 SHAPES = ((4, 6), (2, 3), (5, 5))
 B, M, D, Lq, P = 2, 2, 8, 37, 3

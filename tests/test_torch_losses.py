@@ -28,7 +28,7 @@ from combo_avs_torch.losses.criterion import (
     total_loss)
 from combo_avs_torch.losses.matcher import HungarianMatcher
 from combo_avs_torch.ops.lsap import solve_lsap_batch
-from tests.test_torch_slice import one_torch_thread  # noqa: F401 (autouse fixture)
+from tests.test_torch_slice import one_torch_thread, release_worker_memory  # noqa: F401 (autouse fixtures)
 
 # small point counts: 64 PointRend points (192 candidates, 48 uncertain, 16
 # random), 128 matcher points

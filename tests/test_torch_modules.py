@@ -26,7 +26,7 @@ from combo_avs_tpu.train import checkpoint as jckpt
 from combo_avs_torch.models import fusion, meta_arch, pixel_decoder, position_encoding, resnet
 from combo_avs_torch.models import transformer_decoder, vggish
 from combo_avs_torch.models.layers import init_weights
-from tests.test_torch_slice import one_torch_thread  # noqa: F401 (autouse fixture)
+from tests.test_torch_slice import one_torch_thread, release_worker_memory  # noqa: F401 (autouse fixtures)
 
 TOL = 1e-9  # float64 on both sides; relative to max |output|
 

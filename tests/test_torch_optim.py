@@ -22,7 +22,8 @@ from combo_avs_torch.models.meta_arch import MaskFormer
 from combo_avs_torch.train.optim import (Optimizer, clip_by_global_norm_, param_groups,
                                          warmup_poly_schedule)
 from tests.test_torch_losses import S4_CONFIG
-from tests.test_torch_slice import _port_kwargs, one_torch_thread  # noqa: F401 (autouse fixture)
+from tests.test_torch_slice import (  # noqa: F401 (autouse fixtures)
+    _port_kwargs, one_torch_thread, release_worker_memory)
 
 # loud, pairwise-distinct decays (as tests/test_optim_oracle.py): one
 # misclassified tensor changes its update by a large factor

@@ -21,7 +21,7 @@ from combo_avs_tpu.ops.grid_sample import grid_sample as jax_grid_sample
 from combo_avs_tpu.ops.grid_sample import point_sample as jax_point_sample
 from combo_avs_torch.ops import point_sample_cuda
 from combo_avs_torch.ops.grid_sample import grid_sample, point_sample, point_sample_plain
-from tests.test_torch_slice import one_torch_thread  # noqa: F401 (autouse fixture)
+from tests.test_torch_slice import one_torch_thread, release_worker_memory  # noqa: F401 (autouse fixtures)
 
 
 def _inputs(N, H, W, C, P, seed, dtype=np.float64):

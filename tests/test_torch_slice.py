@@ -6,6 +6,8 @@ Weights come from the port's seeded init and go through the JAX package's
 weights on identical numpy inputs. The port's `state_dict_from_flax` must
 invert that converter exactly."""
 
+import ctypes
+import gc
 import os
 import shutil
 import subprocess
@@ -42,6 +44,23 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def release_worker_memory():
+    """After each port test module, give back what it held: its JAX
+    executables, its garbage, and the heap pages glibc keeps after the
+    arrays are freed. The tier-1 suite's workers each run many modules, and
+    what one module leaves resident adds to every later test of that worker
+    (the sharded JAX training tests need up to 18 GB). The other
+    test_torch_*.py files import this fixture."""
+    yield
+    gc.collect()
+    jax.clear_caches()
+    try:
+        ctypes.CDLL("libc.so.6").malloc_trim(0)
+    except (OSError, AttributeError):  # not glibc: nothing to trim
+        pass
 
 
 def _port_kwargs(jax_model):

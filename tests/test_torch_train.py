@@ -31,7 +31,8 @@ from combo_avs_torch.models.meta_arch import MaskFormer
 from combo_avs_torch.train.optim import Optimizer
 from combo_avs_torch.train.train_step import compute_losses, make_eval_step, make_train_step
 from tests.test_torch_losses import ISR, MPTS, NPTS, OS, jax_draws
-from tests.test_torch_slice import _port_kwargs, one_torch_thread  # noqa: F401 (autouse fixture)
+from tests.test_torch_slice import (  # noqa: F401 (autouse fixtures)
+    _port_kwargs, one_torch_thread, release_worker_memory)
 
 B, T, S, K = 1, 5, 64, 3
 # float64 on both sides, the same function: the losses agree to rounding, and
