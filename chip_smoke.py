@@ -1,20 +1,26 @@
 """Drive the PyTorch port's paths, COMBO-R50 S4 inference, S4 training and
 the S4 evaluation entry point, on one NVIDIA GPU and check them.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--kernels-only]
 
 Phases, each printing what it found; any failure raises, so the script exits
 non-zero and never prints its last line:
   1. environment: torch/CUDA versions, the card, `nvidia-smi` name and power limit;
   2. build every kernel from `combo_avs_torch/csrc` (one nvcc per source, in parallel);
   3. each kernel against its plain PyTorch version on the card, at the shapes
-     the two paths give it and at a ragged shape, with CUDA-event timings, the
-     time of one PyTorch call computing the same function where there is one,
-     and the least time the card could take (bound):
+     the two paths give it and at a ragged shape (K3/K5 also at its launch
+     plan's edges), with three times for the kernel and for one PyTorch call
+     computing the same function where there is one: device ms (calls
+     captured back to back in a CUDA graph and replayed, so no host time
+     enters), call ms (one eager call between events, the wrapper's host
+     time included, as the eager main path pays it) and host us per call;
+     the plain version's call ms; and the least time the card could take
+     (bound):
        K1 deformable-attention forward (fp32 and bf16 value),
        K2 its backward, K3/K5 the point-sample forward, K4 its backward,
        K7 the fused semantic inference (fp32 and bf16 masks; also the time
        of F.interpolate alone), K6 the point gather (against torch.gather);
+     then each kernel ranked against its library call by device ms;
   4. full-width COMBO-R50 S4 (`MaskFormer()` defaults) from a seeded init on
      the card, `make_eval_step` on 3 batches of 4 videos x 5 frames x 224^2 in
      fp32 and in bf16; K1 must be launched 6 times and K7 once per batch;
@@ -35,7 +41,8 @@ non-zero and never prints its last line:
   8. one training step at 12500 points, whose 37500 candidates the
      stratified selection does not divide, so that K6 runs once per decoder
      output;
-  9. a JSON line of per-kernel results, then the final JSON status line.
+  9. a JSON line of per-kernel results (`ms` device ms, `call_ms` call ms),
+     then the final JSON status line.
 Without a CUDA device it exits non-zero at once.
 """
 
@@ -99,6 +106,20 @@ TRAIN_VS_CPU_SIZE = 128
 LOSS_RTOL_CPU, GRAD_RL2_LEAF, GRAD_RL2_MEDIAN, GRAD_RL2_ALL = 1e-3, 0.15, 0.03, 0.075
 GRAD_FLOOR = 1e-6
 
+# the point-sample forward's launch-plan edges: name, feat [N, H, W, C],
+# points, inputs misaligned
+POINT_EDGE_CASES = (
+    ("ragged", (3, 7, 5, 33), 101, False),
+    ("c3_p_odd", (3, 56, 56, 3), 12545, False),
+    ("c4_staged", (3, 32, 32, 4), 1003, False),
+    ("c4_global", (2, 56, 56, 4), 1000, False),
+    ("one_over_stage_limit", (2, 1, 12289, 1), 3001, False),
+    ("many_images", (70000, 2, 2, 1), 6, False),
+    ("misaligned_c1_staged", (4, 56, 56, 1), 2048, True),
+    ("misaligned_c3_global", (2, 224, 224, 3), 999, True),
+    ("misaligned_channels", (2, 56, 56, 100), 300, True),
+)
+
 # K7 at the eval tail: mask [20, 100, 56, 56] -> [20, 2, 224, 224]
 K7_SHAPE = dict(N=B * T, Q=NUM_QUERIES, C=2, h=MASK_HW, w=MASK_HW)
 # bf16: the plain version rounds the upsampled logits and their sigmoid to
@@ -120,6 +141,8 @@ EVAL_METRIC_ATOL = 1e-3
 # the card's published peaks (NVIDIA H100 SXM data sheet, at the 700 W limit):
 # HBM bandwidth and float32 outside the tensor cores
 PEAK_BYTES_PER_S, PEAK_FP32_PER_S = 3.35e12, 67e12
+# device ms: calls captured back to back in one CUDA graph, replays timed
+GRAPH_CALLS, GRAPH_REPLAYS = 100, 7
 
 REPLACES = {
     "k1": "combo_avs_tpu/ops/deform_attn_pallas.py:408",
@@ -234,8 +257,10 @@ def point_corners(points: torch.Tensor, H: int, W: int) -> int:
     return corners_inside(points[..., 0] * W - 0.5, points[..., 1] * H - 0.5, H, W)
 
 
-def cuda_time_ms(fn, iters=20, warmup=3) -> float:
-    """Median over `iters` of one call each, timed with CUDA events."""
+def call_time_ms(fn, iters=20, warmup=3) -> float:
+    """Call ms: the median over `iters` of one eager call each, between two
+    CUDA events on an idle stream, so the wrapper's host time counts too, as
+    the eager main path pays it."""
     for _ in range(warmup):
         fn()
     times = []
@@ -248,6 +273,90 @@ def cuda_time_ms(fn, iters=20, warmup=3) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def device_time_ms(fn) -> tuple:
+    """Device ms: GRAPH_CALLS back-to-back calls captured in one CUDA graph,
+    replayed between two events, over GRAPH_CALLS; the median of
+    GRAPH_REPLAYS replays. No host time enters. Should the capture fail, the
+    device time per call of every kernel the calls ran, from torch.profiler.
+    Returns (ms, source), the source "graph" or "profiler"."""
+    from torch.profiler import ProfilerActivity, profile
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture, as torch.cuda.graph asks
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    try:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(GRAPH_CALLS):
+                fn()
+        graph.replay()
+        times = []
+        for _ in range(GRAPH_REPLAYS):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            graph.replay()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b) / GRAPH_CALLS)
+        del graph
+        return float(np.median(times)), "graph"
+    except RuntimeError as e:
+        log(f"[timing] CUDA graph capture failed ({str(e).splitlines()[0]}); the device time "
+            "comes from torch.profiler")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(GRAPH_CALLS):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+              and not e.is_user_annotation]
+    return sum(e.device_time for e in events) / 1e3 / GRAPH_CALLS, "profiler"
+
+
+def host_us(fn, calls=200) -> float:
+    """Host us per call: the host clock around `calls` eager calls that
+    enqueue without waiting (the stream runs behind), over `calls`."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / calls * 1e6
+
+
+def timings(fn, plain=None, library=None) -> dict:
+    """The kernel's device ms (with its source), call ms and host us per
+    call; the same for the library call computing the same function; the
+    plain version's call ms (it repeats the kernel's arithmetic in many ops
+    and is no yardstick of speed)."""
+    t = dict(zip(("ms", "device_source"), device_time_ms(fn)), call_ms=call_time_ms(fn),
+             host_us=host_us(fn))
+    if plain is not None:
+        t["plain_ms"] = call_time_ms(plain)
+    if library is not None:
+        t.update(zip(("library_ms", "library_source"), device_time_ms(library)),
+                 library_call_ms=call_time_ms(library), library_host_us=host_us(library))
+    return t
+
+
+def describe(t: dict, library: str = "library") -> str:
+    s = (f"kernel {t['ms']:.4f} ms device ({t['device_source']}), {t['call_ms']:.4f} ms call, "
+         f"{t['host_us']:.1f} us host")
+    if "library_ms" in t:
+        s += (f"; {library} {t['library_ms']:.4f} ms device ({t['library_source']}), "
+              f"{t['library_call_ms']:.4f} ms call, {t['library_host_us']:.1f} us host")
+    if "plain_ms" in t:
+        s += f"; plain {t['plain_ms']:.4f} ms call"
+    return s
 
 
 def compare(tag: str, got: torch.Tensor, want: torch.Tensor, tol: float) -> dict:
@@ -289,14 +398,14 @@ def phase_k1(dev: torch.device) -> dict:
             want = ms_deform_attn_plain(value, levels, loc, w)
             err = compare(f"[k1] {name}", got, want, tol)
             if levels == K1_LEVELS:
-                ms = cuda_time_ms(lambda: k1.ms_deform_attn_cuda(value, levels, loc, w))
-                plain_ms = cuda_time_ms(lambda: ms_deform_attn_plain(value, levels, loc, w))
+                t = timings(lambda: k1.ms_deform_attn_cuda(value, levels, loc, w),
+                            plain=lambda: ms_deform_attn_plain(value, levels, loc, w))
                 # one FMA per in-level corner and channel
                 bd = bound(nbytes(value, loc, w, got),
                            2 * shp["D"] * deform_corners(levels, loc))
-                log(f"[k1] {name}: K1 {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-                    f"{bd['bound_ms']:.4f} ms by {bd['bound_by']} (median of 20)")
-                result[name] = dict(err, ms=ms, plain_ms=plain_ms, **bd)
+                log(f"[k1] {name}: {describe(t)}; bound {bd['bound_ms']:.4f} ms by "
+                    f"{bd['bound_by']}")
+                result[name] = dict(err, **t, **bd)
     return result
 
 
@@ -322,20 +431,25 @@ def phase_k2(dev: torch.device) -> dict:
         errs = [compare(f"[k2] {name} d{n}", a, b, TOL_FP32)
                 for n, a, b in zip(("value", "loc", "weights"), got, want)]
         if name == "train":
-            ms = cuda_time_ms(lambda: k.ms_deform_attn_bwd_cuda(value, levels, loc, w, g))
-            plain_ms = cuda_time_ms(
-                lambda: torch.autograd.grad(out, leaves, g, retain_graph=True))
+            t = timings(lambda: k.ms_deform_attn_bwd_cuda(value, levels, loc, w, g),
+                        plain=lambda: torch.autograd.grad(out, leaves, g, retain_graph=True))
             # per in-level corner and channel: <g, v>, three FMAs into the
             # weight and the two coordinate sums, the dvalue term a*w*g and its add
             bd = bound(nbytes(value, loc, w, g, *got),
                        10 * shp["D"] * deform_corners(levels, loc))
-            log(f"[k2] {name}: K2 {ms:.4f} ms, plain (autograd backward) {plain_ms:.4f} ms, "
-                f"bound {bd['bound_ms']:.4f} ms by {bd['bound_by']} (median of 20)")
+            log(f"[k2] {name}: {describe(t)} (autograd backward); bound "
+                f"{bd['bound_ms']:.4f} ms by {bd['bound_by']}")
             result = dict(max_abs_err=max(e["max_abs_err"] for e in errs),
-                          max_rel_err=max(e["max_rel_err"] for e in errs),
-                          ms=ms, plain_ms=plain_ms, **bd)
+                          max_rel_err=max(e["max_rel_err"] for e in errs), **t, **bd)
         del out, leaves
     return result
+
+
+def misaligned(t: torch.Tensor) -> torch.Tensor:
+    """`t`'s values in a contiguous tensor 4 bytes into its allocation."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:] = t.reshape(-1)
+    return buf[1:].view(t.shape)
 
 
 def _grid(points: torch.Tensor) -> torch.Tensor:
@@ -359,29 +473,34 @@ def phase_point_sample(dev: torch.device) -> dict:
         ("k3_point_labels", (M, H, H, 1), P),  # criterion: the target masks
         ("k3_matcher_targets", (N, H, H, TRAIN_K), P),  # matcher: the target masks
         ("k5_matcher_preds", (N, h, h, NUM_QUERIES), P),  # matcher: 100 masks, shared points
-        ("ragged", (3, 7, 5, 33), 101),
     ]
     shapes = []
     with torch.inference_mode():
+        # the launch plan's edges, checked and not timed: a ragged C > 4, odd
+        # P (scalar tails), C = 3 and 4 staged and not, an image one float
+        # over the staging limit, more images than grid rows, and inputs 4
+        # bytes off their 16-byte alignment
+        for i, (name, (n, hh, ww, c), p, misalign) in enumerate(POINT_EDGE_CASES):
+            feat, pts = point_inputs(n, hh, ww, c, p, dev, seed=50 + i)
+            want = point_sample_plain(feat, pts)
+            if misalign:
+                feat, pts = misaligned(feat), misaligned(pts)
+            compare(f"[k3/k5] {name}", k.point_sample_fwd_cuda(feat, pts), want, TOL_FP32)
         for i, (name, (n, hh, ww, c), p) in enumerate(fwd_cases):
             feat, pts = point_inputs(n, hh, ww, c, p, dev, seed=20 + i)
             got = k.point_sample_fwd_cuda(feat, pts)
             err = compare(f"[k3/k5] {name}", got, point_sample_plain(feat, pts), TOL_FP32)
-            if name == "ragged":
-                continue
             nchw, grid = feat.permute(0, 3, 1, 2).contiguous(), _grid(pts)
-            ms = cuda_time_ms(lambda: k.point_sample_fwd_cuda(feat, pts))
-            plain_ms = cuda_time_ms(lambda: point_sample_plain(feat, pts))
-            lib_ms = cuda_time_ms(lambda: F.grid_sample(nchw, grid, mode="bilinear",
-                                                        padding_mode="zeros",
-                                                        align_corners=False))
+            t = timings(lambda: k.point_sample_fwd_cuda(feat, pts),
+                        plain=lambda: point_sample_plain(feat, pts),
+                        library=lambda: F.grid_sample(nchw, grid, mode="bilinear",
+                                                      padding_mode="zeros", align_corners=False))
             # one FMA per in-image corner and channel
             bd = bound(nbytes(feat, pts, got), 2 * c * point_corners(pts, hh, ww))
-            log(f"[k3/k5] {name}: [{n},{hh},{ww},{c}] at {p} points: kernel {ms:.4f} ms, "
-                f"plain {plain_ms:.4f} ms, F.grid_sample {lib_ms:.4f} ms, bound "
-                f"{bd['bound_ms']:.4f} ms by {bd['bound_by']} (median of 20)")
-            shapes.append(dict(name=name, shape=[n, hh, ww, c], points=p, ms=ms,
-                               plain_ms=plain_ms, library_ms=lib_ms, **err, **bd))
+            log(f"[k3/k5] {name}: [{n},{hh},{ww},{c}] at {p} points: "
+                f"{describe(t, 'F.grid_sample')}; bound {bd['bound_ms']:.4f} ms by "
+                f"{bd['bound_by']} ({bd['bound_ms'] / t['ms']:.0%} of it)")
+            shapes.append(dict(name=name, shape=[n, hh, ww, c], points=p, **t, **err, **bd))
 
     back = {}
     for name, (n, hh, ww, c), p in [("train", (M, h, h, 1), P), ("ragged", (3, 7, 5, 33), 101)]:
@@ -397,31 +516,32 @@ def phase_point_sample(dev: torch.device) -> dict:
         e_xy = compare(f"[k4] {name} dxy", got_dp, want_dp, TOL_FP32)
         if name != "train":
             continue
-        nchw = feat.permute(0, 3, 1, 2).contiguous().requires_grad_()
-        grid = _grid(pts).requires_grad_()
-        lib_out = F.grid_sample(nchw, grid, mode="bilinear", padding_mode="zeros",
-                                align_corners=False)
+        nchw, grid = feat.permute(0, 3, 1, 2).contiguous(), _grid(pts)
         dlib = dout.permute(0, 2, 1)[..., None].contiguous()  # [N, C, P, 1]
         corners = point_corners(pts, hh, ww)
+        # the library's backward as autograd calls it for one of the two
+        # inputs: one ATen op (bilinear, zero padding, align_corners=False)
+        lib_bwd = lambda mask: torch.ops.aten.grid_sampler_2d_backward(  # noqa: E731
+            dlib, nchw, grid, 0, 0, False, mask)
         for kind, fn, plain_fn, lib_fn, bd, err in (
             ("dimg", lambda: k.point_sample_dimg_cuda(pts, dout, (hh, ww)),
              lambda: torch.autograd.grad(out, f_, dout, retain_graph=True),
-             lambda: torch.autograd.grad(lib_out, nchw, dlib, retain_graph=True),
+             lambda: lib_bwd([True, False]),
              # a product and an atomic add per in-image corner and channel
              bound(nbytes(pts, dout, got_df), 2 * c * corners), e_img),
             ("dxy", lambda: k.point_sample_dxy_cuda(feat, pts, dout),
              lambda: torch.autograd.grad(out, p_, dout, retain_graph=True),
-             lambda: torch.autograd.grad(lib_out, grid, dlib, retain_graph=True),
+             lambda: lib_bwd([False, True]),
              # per point and channel: two corner differences, two weights, a
              # sum and an FMA with dout, for x and for y
              bound(nbytes(feat, pts, dout, got_dp), 14 * c * n * p), e_xy),
         ):
-            ms, plain_ms, lib_ms = (cuda_time_ms(f) for f in (fn, plain_fn, lib_fn))
-            log(f"[k4] {kind}: [{n},{hh},{ww},{c}] at {p} points: kernel {ms:.4f} ms, plain "
-                f"(autograd) {plain_ms:.4f} ms, F.grid_sample backward {lib_ms:.4f} ms, bound "
-                f"{bd['bound_ms']:.4f} ms by {bd['bound_by']} (median of 20)")
-            back[kind] = dict(err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **bd)
-        del out, lib_out
+            t = timings(fn, plain=plain_fn, library=lib_fn)
+            log(f"[k4] {kind}: [{n},{hh},{ww},{c}] at {p} points: "
+                f"{describe(t, 'F.grid_sample backward')} (autograd); bound "
+                f"{bd['bound_ms']:.4f} ms by {bd['bound_by']}")
+            back[kind] = dict(err, **t, **bd)
+        del out
     return {"fwd": shapes, **back}
 
 
@@ -460,19 +580,22 @@ def phase_k7(dev: torch.device) -> dict:
                               k.semantic_inference_plain(cls, mask, size, temporal), tol)
             if name.startswith("ragged"):
                 continue
-            ms = cuda_time_ms(lambda: k.seminf_cuda(cls, mask, size))
-            plain_ms = cuda_time_ms(lambda: k.semantic_inference_plain(cls, mask, size))
-            resize_ms = cuda_time_ms(lambda: F.interpolate(mask, size=size, mode="bilinear",
-                                                           align_corners=False, antialias=False))
+            t = timings(lambda: k.seminf_cuda(cls, mask, size),
+                        plain=lambda: k.semantic_inference_plain(cls, mask, size))
+            # F.interpolate alone: a part of the plain version, not the same function
+            resize = timings(lambda: F.interpolate(mask, size=size, mode="bilinear",
+                                                   align_corners=False, antialias=False))
             # per (pixel, query): the bilinear sample (4 products, 3 sums and
             # the weights' share), the sigmoid (negate, exp, add, reciprocal)
             # and a multiply-add per class
             flops = shp["N"] * size[0] * size[1] * shp["Q"] * (12 + 2 * shp["C"])
             bd = bound(nbytes(cls, mask) + shp["N"] * shp["C"] * size[0] * size[1] * 4, flops)
-            log(f"[k7] {name}: mask {list(mask.shape)} -> {size}: K7 {ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms (F.interpolate alone {resize_ms:.4f} ms), bound "
-                f"{bd['bound_ms']:.4f} ms by {bd['bound_by']} (median of 20)")
-            result[name] = dict(err, ms=ms, plain_ms=plain_ms, resize_ms=resize_ms, **bd)
+            log(f"[k7] {name}: mask {list(mask.shape)} -> {size}: {describe(t)}; "
+                f"F.interpolate alone {resize['ms']:.4f} ms device ({resize['device_source']}), "
+                f"{resize['call_ms']:.4f} ms call, {resize['host_us']:.1f} us host; bound "
+                f"{bd['bound_ms']:.4f} ms by {bd['bound_by']}")
+            result[name] = dict(err, **t, resize_ms=resize["ms"],
+                                resize_call_ms=resize["call_ms"], **bd)
     return result
 
 
@@ -495,17 +618,17 @@ def phase_k6(dev: torch.device) -> dict:
         log(f"[k6] {name}: [{G}, {NS}, 2] -> {P}: equal to torch.gather")
         if name != "train":
             continue
-        ms = cuda_time_ms(lambda: k.gather_points_cuda(src, idx))
-        plain_ms = cuda_time_ms(lambda: k.gather_points_plain(src, idx))
         idx2 = idx[..., None].expand(-1, -1, 2)
-        lib_ms = cuda_time_ms(lambda: torch.gather(src, 1, idx2))
+        t = timings(lambda: k.gather_points_cuda(src, idx),
+                    plain=lambda: k.gather_points_plain(src, idx),
+                    library=lambda: torch.gather(src, 1, idx2))
         # the index and the output once, and each source point this data
         # reads (a top-k selects distinct points of its row)
         touched = int(torch.unique(idx + torch.arange(G, device=dev)[:, None] * NS).numel())
         bd = bound(nbytes(idx, got) + 8 * touched, 0)
-        log(f"[k6] {name}: K6 {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.gather {lib_ms:.4f} "
-            f"ms, bound {bd['bound_ms']:.4f} ms by {bd['bound_by']} (median of 20)")
-        result = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **bd)
+        log(f"[k6] {name}: {describe(t, 'torch.gather')}; bound {bd['bound_ms']:.4f} ms by "
+            f"{bd['bound_by']}")
+        result = dict(max_abs_err=0.0, **t, **bd)
     return result
 
 
@@ -785,11 +908,39 @@ def phase_card_vs_cpu(model) -> None:
         np.testing.assert_allclose(a, b, atol=SLICE_ATOL, rtol=SLICE_RTOL)
 
 
+class SharedMatching:
+    """The criterion's matcher for the card-vs-CPU comparison: it records
+    the CPU pass's assignments and hands them to the card pass, so that a
+    near-tie between two queries' matching costs, which float32 rounding can
+    break either way, cannot swap the mask a loss is taken on (the weights
+    come from the nondeterministic training steps, so such a tie shows up in
+    some runs and not others). The card's own matcher still runs on the card
+    pass; how many slots it matched otherwise is counted."""
+
+    def __init__(self, matcher):
+        self.matcher, self.recorded, self.replay = matcher, [], None
+        self.slots = self.differ = 0
+
+    def __getattr__(self, name):  # num_points, for the draws
+        return getattr(self.matcher, name)
+
+    def __call__(self, *args):
+        assign = self.matcher(*args)
+        if self.replay is None:
+            self.recorded.append(assign)
+            return assign
+        want = self.replay.pop(0).to(assign.device)
+        self.slots += want.numel()
+        self.differ += int((want != assign).sum())
+        return want
+
+
 def phase_train_card_vs_cpu(model) -> dict:
     """The training losses and every parameter's gradient, card against CPU:
     full width, 1 video x 5 frames x 128^2, TF32 off, dropout off (eval
-    mode), the same weights and the same injected draws, exact top-k on both
-    sides (the CPU always takes it)."""
+    mode), the same weights, the same injected draws and the CPU's matching
+    (`SharedMatching`), exact top-k on both sides (the CPU always takes
+    it)."""
     from combo_avs_torch.losses.criterion import SetCriterion, build_weight_dict, total_loss
     from combo_avs_torch.models.meta_arch import MaskFormer
     from combo_avs_torch.train.train_step import compute_losses
@@ -801,12 +952,15 @@ def phase_train_card_vs_cpu(model) -> dict:
     cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()}, strict=True)
     batch = {k: v.cpu() for k, v in train_batch(1, TRAIN_VS_CPU_SIZE, dev, seed=SEED + 2).items()}
     crit = SetCriterion(exact_topk=True)
+    matching = crit.matcher = SharedMatching(crit.matcher)
     wd = build_weight_dict()
     g = torch.Generator().manual_seed(SEED + 3)
     draws = [crit.draw(g, T, TRAIN_K) for _ in range(DEC_OUTPUTS)]
     res = {}
     for name, m in (("cpu", cpu), ("gpu", model)):
         d = next(m.parameters()).device
+        if name == "gpu":
+            matching.replay = list(matching.recorded)
         m.eval()
         m.zero_grad(set_to_none=True)
         t0 = time.perf_counter()
@@ -818,6 +972,8 @@ def phase_train_card_vs_cpu(model) -> dict:
         res[name] = ({k: float(v.detach()) for k, v in losses.items()}, grads)
         log(f"[train-card-vs-cpu] {name}: losses and gradients in {time.perf_counter() - t0:.1f} s")
     model.zero_grad(set_to_none=True)
+    log(f"[train-card-vs-cpu] the card's matcher chose another query for {matching.differ} of "
+        f"{matching.slots} slots (a near-tie in the cost); both sides took the CPU's matching")
     (lc, gc), (lg, gg) = res["cpu"], res["gpu"]
     if set(gc) != set(gg) or set(lc) != set(lg):
         raise AssertionError("[train-card-vs-cpu] different losses or gradient sets")
@@ -841,14 +997,40 @@ def phase_train_card_vs_cpu(model) -> dict:
             "grad_rl2_median": median, "grad_rl2_all": all_rl2}
 
 
+TIMING_KEYS = ("ms", "device_source", "call_ms", "host_us", "plain_ms", "library_ms",
+               "library_source", "library_call_ms", "library_host_us")
+
+
 def kernel_entry(name, source, replaces, launches, numbers, **extra) -> dict:
+    """One kernel of the `kernels` line: `ms` is its device ms, `call_ms` one
+    eager call's, `plain_ms` the plain version's call ms, `library_ms` the
+    library call's device ms (null where no single call computes the function)."""
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(launches.values()), "launches_by_path": launches,
-            **{k: numbers[k] for k in keys}, "library_ms": numbers.get("library_ms"), **extra}
+            **{k: numbers[k] for k in keys}, "library_ms": numbers.get("library_ms"),
+            **{k: numbers[k] for k in TIMING_KEYS if k in numbers and k not in keys}, **extra}
 
 
-def main() -> int:
+def rank_against_library(rows) -> list:
+    """Each (name, timings) with a library call, slowest against it first, by
+    device ms; prints the ranking."""
+    ranked = sorted(((name, t["ms"], t["library_ms"], t["ms"] / t["library_ms"])
+                     for name, t in rows if t.get("library_ms")), key=lambda r: -r[3])
+    for name, ms, lib, ratio in ranked:
+        log(f"[rank] {name}: {ms:.4f} ms device against the library's {lib:.4f} ms: "
+            f"{ratio:.2f}x ({'slower' if ratio > 1 else 'no slower'})")
+    return ranked
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="phases 1-3 only (build, each kernel against its plain version, "
+                         "timings), for comparing two trees; prints no status line")
+    args = ap.parse_args(argv)
     smi = phase_env()
     dev = torch.device("cuda", 0)
     phase_build()
@@ -857,6 +1039,12 @@ def main() -> int:
     ps = phase_point_sample(dev)
     k7 = phase_k7(dev)
     k6 = phase_k6(dev)
+    with_library = ([(s["name"], s) for s in ps["fwd"]]
+                    + [("k4_dimg", ps["dimg"]), ("k4_dxy", ps["dxy"]), ("k6", k6)])
+    if args.kernels_only:
+        rank_against_library(with_library)
+        log(f"[kernels-only] done on {smi}")
+        return 0
 
     from combo_avs_torch.models.layers import init_weights
     from combo_avs_torch.models.meta_arch import MaskFormer
@@ -880,15 +1068,20 @@ def main() -> int:
     ev, tl, fb = sl["launches"], tr["launches"], tf["launches"]
     entry = {k: ee["fp32"]["launches"][k] + ee["bf16"]["launches"][k] for k in ("k1", "k7")}
     fwd = ps["fwd"]
-    per_layer = {k: sum(s[k] for s in fwd) for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                                                     "bytes", "flops")}
+    per_layer = {k: sum(s[k] for s in fwd) for k in ("ms", "call_ms", "host_us", "plain_ms",
+                                                     "library_ms", "library_call_ms",
+                                                     "library_host_us", "bound_ms", "bytes",
+                                                     "flops")}
+    per_layer.update({k: "+".join(sorted({s[k] for s in fwd}))
+                      for k in ("device_source", "library_source")})
+    ranked = rank_against_library(with_library)
     kernels = [
         kernel_entry("ms_deform_attn_fwd", "combo_avs_torch/csrc/ms_deform_attn_fwd.cu",
                      REPLACES["k1"], {"eval": ev["k1"], "eval_entry": entry["k1"],
                                        "train": tl["k1"], "train_fallback": fb["k1"]}, k1["fp32"],
                      shape="value [20,1029,8,32] fp32", max_abs_err_bf16=k1["bf16"]["max_abs_err"],
-                     ms_bf16=k1["bf16"]["ms"], plain_ms_bf16=k1["bf16"]["plain_ms"],
-                     bound_ms_bf16=k1["bf16"]["bound_ms"]),
+                     ms_bf16=k1["bf16"]["ms"], call_ms_bf16=k1["bf16"]["call_ms"],
+                     plain_ms_bf16=k1["bf16"]["plain_ms"], bound_ms_bf16=k1["bf16"]["bound_ms"]),
         kernel_entry("ms_deform_attn_bwd", "combo_avs_torch/csrc/ms_deform_attn_bwd.cu",
                      REPLACES["k2"], {"eval": ev["k2"], "train": tl["k2"],
                                        "train_fallback": fb["k2"]}, k2,
@@ -901,9 +1094,9 @@ def main() -> int:
                           >= per_layer["flops"] / PEAK_FP32_PER_S else "operations"),
                      also_replaces=REPLACES["k5"],
                      shape="one decoder output's 5 calls, summed; each in calls",
-                     calls=[{k: s[k] for k in ("name", "shape", "points", "ms", "plain_ms",
-                                               "library_ms", "bound_ms", "bound_by",
-                                               "max_abs_err")} for s in fwd]),
+                     calls=[{k: s[k] for k in ("name", "shape", "points", *TIMING_KEYS,
+                                               "bound_ms", "bound_by", "max_abs_err")}
+                            for s in fwd]),
         kernel_entry("point_sample_bwd_dimg", "combo_avs_torch/csrc/point_sample_bwd.cu",
                      REPLACES["k4"], {"eval": ev["k4_dimg"], "train": tl["k4_dimg"],
                                        "train_fallback": fb["k4_dimg"]}, ps["dimg"],
@@ -911,13 +1104,15 @@ def main() -> int:
                      also_replaces=REPLACES["k4_dxy"],
                      dxy_launches={"eval": ev["k4_dxy"], "train": tl["k4_dxy"],
                                    "train_fallback": fb["k4_dxy"]},
-                     **{f"dxy_{k}": ps["dxy"][k] for k in ("max_abs_err", "ms", "plain_ms",
-                                                           "library_ms", "bound_ms", "bound_by")}),
+                     **{f"dxy_{k}": ps["dxy"][k] for k in ("max_abs_err", *TIMING_KEYS,
+                                                           "bound_ms", "bound_by")}),
         kernel_entry("seminf_fwd", "combo_avs_torch/csrc/seminf_fwd.cu", REPLACES["k7"],
                      {"eval": ev["k7"], "eval_entry": entry["k7"], "train": tl["k7"]}, k7["fp32"],
                      shape="mask [20,100,56,56] fp32 -> [20,2,224,224]",
-                     resize_ms=k7["fp32"]["resize_ms"], max_abs_err_bf16=k7["bf16"]["max_abs_err"],
-                     ms_bf16=k7["bf16"]["ms"], plain_ms_bf16=k7["bf16"]["plain_ms"],
+                     resize_ms=k7["fp32"]["resize_ms"],
+                     resize_call_ms=k7["fp32"]["resize_call_ms"],
+                     max_abs_err_bf16=k7["bf16"]["max_abs_err"], ms_bf16=k7["bf16"]["ms"],
+                     call_ms_bf16=k7["bf16"]["call_ms"], plain_ms_bf16=k7["bf16"]["plain_ms"],
                      resize_ms_bf16=k7["bf16"]["resize_ms"], bound_ms_bf16=k7["bf16"]["bound_ms"]),
         kernel_entry("gather_points", "combo_avs_torch/csrc/gather.cu", REPLACES["k6"],
                      {"eval": ev["k6"], "train": tl["k6"], "train_fallback": fb["k6"]}, k6,
@@ -927,6 +1122,7 @@ def main() -> int:
                               "max_memory_allocated": tr["peak_bytes"],
                               "shape": f"{TRAIN_B}x{T}x{SIZE}^2 K={TRAIN_K} fp32"},
                     "eval_fps": sl["fps"], "card": smi,
+                    "slower_than_library": [r[0] for r in ranked if r[3] > 1],
                     "eval_entry": {k: {"metrics": v["metrics"], "timing": v["timing"]}
                                    for k, v in ee.items()}}))
     print(json.dumps({"kernels": kernels}), flush=True)

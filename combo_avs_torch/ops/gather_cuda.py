@@ -22,6 +22,9 @@ from combo_avs_torch.ops import _build
 SOURCE = "gather.cu"
 
 launches = 0
+# gather_points(src, idx, out, G, NS, P, index_bytes, stream)
+ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_bound = None  # the ctypes function, bound once per process
 
 
 def gather_points_plain(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -29,18 +32,20 @@ def gather_points_plain(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def _kernel():
-    fn = _build.load(SOURCE).gather_points
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    global _bound
+    if _bound is None:
+        fn = _build.load(SOURCE).gather_points
+        fn.argtypes = ARGTYPES
         fn.restype = ctypes.c_int
-    return fn
+        _bound = fn
+    return _bound
 
 
 def gather_points_cuda(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Launch the kernel on contiguous CUDA tensors: src [G, NS, 2] float32,
     idx [G, P] int64 or int32 -> [G, P, 2] float32."""
     global launches
-    if not (src.is_cuda and idx.is_cuda) or src.device != idx.device:
+    if not (src.is_cuda and idx.is_cuda) or src.get_device() != idx.get_device():
         raise ValueError("gather_points_cuda: src and idx must be CUDA tensors on one device")
     if src.dtype != torch.float32 or idx.dtype not in (torch.int64, torch.int32):
         raise TypeError(f"gather_points_cuda: src must be float32 and idx int64 or int32, got "
@@ -48,17 +53,17 @@ def gather_points_cuda(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if not (src.is_contiguous() and idx.is_contiguous()) or src.data_ptr() % 8:
         raise ValueError("gather_points_cuda: inputs must be contiguous, src 8-byte aligned")
     if src.dim() != 3 or src.shape[2] != 2 or idx.dim() != 2 or idx.shape[0] != src.shape[0] \
-            or min(*src.shape, *idx.shape) < 1:
+            or src.numel() == 0 or idx.numel() == 0:
         raise ValueError(f"gather_points_cuda: src {tuple(src.shape)} must be [G, NS, 2] and "
                          f"idx {tuple(idx.shape)} [G, P], non-empty")
-    G, NS = src.shape[:2]
+    G, NS, _ = src.shape
     P = idx.shape[1]
     if G > 65535 or max(NS, P) >= 2**30:
         raise ValueError(f"gather_points_cuda: [{G}, {NS}] -> {P} is out of range (at most "
                          "65535 rows and 2^30 - 1 points)")
     out = torch.empty((G, P, 2), dtype=torch.float32, device=src.device)
     err = _kernel()(src.data_ptr(), idx.data_ptr(), out.data_ptr(), G, NS, P,
-                    idx.element_size(), torch.cuda.current_stream(src.device).cuda_stream)
+                    idx.element_size(), torch._C._cuda_getCurrentRawStream(src.get_device()))
     if err != 0:
         raise RuntimeError(f"gather_points launch failed: CUDA error {err}")
     launches += 1

@@ -4,7 +4,10 @@ kernels (`csrc/point_sample_bwd.cu`, the TPU's K4), and their
 `torch.autograd.Function`.
 
 `point_sample_cuda(feat [N, H, W, C], points [N, P, 2]) -> [N, P, C]` is what
-`ops.grid_sample.point_sample` calls for a CUDA tensor. Its backward launches
+`ops.grid_sample.point_sample` calls for a CUDA tensor. The forward's kernel
+and its grid come from `launch_plan`, a pure function of the shapes and the
+inputs' alignment that the CPU tests check; the C function only executes
+the plan it is given. Its backward launches
 the image-gradient kernel when `feat` needs a gradient and the
 point-gradient kernel only when `points` do (on the training path they never
 do: the criterion's points are drawn, not learned). Every wrapper raises on a
@@ -18,6 +21,8 @@ nowhere else.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -31,51 +36,122 @@ fwd_launches = 0
 dimg_launches = 0
 dxy_launches = 0
 
+_INT = ctypes.c_int
+_PTR = ctypes.c_void_p
 _SIGNATURES = {
-    # name: (source, pointer count)
-    "point_sample_fwd": (FWD_SOURCE, 3),
-    "point_sample_bwd_dimg": (BWD_SOURCE, 3),
-    "point_sample_bwd_dxy": (BWD_SOURCE, 4),
+    # name: (source, ctypes arguments); the forward takes its shape and launch
+    # plan as one int array (_plan_args), which ctypes converts at a third of
+    # the cost of 11 separate ints
+    "point_sample_fwd": (FWD_SOURCE, [_PTR] * 3 + [ctypes.POINTER(_INT), _PTR]),
+    "point_sample_bwd_dimg": (BWD_SOURCE, [_PTR] * 3 + [_INT] * 6 + [_PTR]),
+    "point_sample_bwd_dxy": (BWD_SOURCE, [_PTR] * 4 + [_INT] * 6 + [_PTR]),
 }
+_bound: dict = {}  # name -> the ctypes function, bound once per process
+
+# the forward's launch plan (csrc/point_sample_fwd.cu executes it)
+THREADS = 256  # threads per block, both kernels
+POINTS_PER_THREAD = 4  # the staged kernel
+STAGE_BYTES = 48 * 1024  # largest image staged in shared memory (no opt-in needed)
+MAX_CHANNEL_POINTS = 256  # the channels kernel's corner table
+GRID_ROWS = 65535  # the grid's y limit: images beyond it loop within a block row
+# points a staged block samples: its image copy is spread over that many
+# (scripts/bench_point_plans.py: 4096-8192 slower, 1024 slower at the
+# criterion's 37632 points and a little faster at 12544)
+STAGED_POINTS_PER_BLOCK = 2 * THREADS * POINTS_PER_THREAD
+
+
+class LaunchPlan(NamedTuple):
+    """How `csrc/point_sample_fwd.cu` samples feat [N, H, W, C] at [N, P, 2]
+    points.
+
+    kernel: "staged" (C <= 4 and an image of at most STAGE_BYTES: the block
+        copies its image into shared memory, a thread takes
+        POINTS_PER_THREAD consecutive points with their C channels in
+        registers) or "channels" (any other: a block takes up to
+        MAX_CHANNEL_POINTS points, its threads walk their channels and
+        gather the corners from global memory);
+    vec: vector accesses (staged: two points in a float4, the C outputs of
+        four points as C float4, corners as float2 / float4 at C = 2 / 4;
+        channels: float4 channel units), else the tail-safe scalar path;
+    stage16: the staging copies 16 bytes at a time (else 4);
+    points_per_block, grid: the block's points, and the grid (point blocks
+        per image, image rows), whose rows loop over N when N > GRID_ROWS."""
+
+    kernel: str
+    vec: bool
+    stage16: bool
+    points_per_block: int
+    grid: Tuple[int, int]
+
+
+def launch_plan(N: int, H: int, W: int, C: int, P: int, feat_ptr: int = 0,
+                points_ptr: int = 0) -> LaunchPlan:
+    """The forward's launch plan, a pure function of the shapes and the
+    inputs' addresses (the output is a fresh, aligned allocation)."""
+    rows = min(N, GRID_ROWS)
+    if C <= 4 and H * W * C * 4 <= STAGE_BYTES:
+        vec = points_ptr % 16 == 0 and P % 2 == 0 and (P * C) % 4 == 0
+        per_block = STAGED_POINTS_PER_BLOCK
+        return LaunchPlan("staged", vec, feat_ptr % 16 == 0 and (H * W * C) % 4 == 0,
+                          per_block, (-(-P // per_block), rows))
+    vec = C % 4 == 0 and feat_ptr % 16 == 0
+    units = C // 4 if vec else C
+    per_block = max(1, min(MAX_CHANNEL_POINTS, THREADS * 4 // units))
+    return LaunchPlan("channels", vec, False, per_block, (-(-P // per_block), rows))
+
+
+@functools.lru_cache(maxsize=1024)
+def _plan_args(N: int, H: int, W: int, C: int, P: int, feat_ptr: int, points_ptr: int):
+    """The C function's int array: N, H, W, C, P and launch_plan's kernel
+    (0 staged, 1 channels), vec, stage16, points per block, grid x, grid y;
+    made once per shape and alignment (the addresses are passed modulo 16)."""
+    plan = launch_plan(N, H, W, C, P, feat_ptr, points_ptr)
+    return (_INT * 11)(N, H, W, C, P, int(plan.kernel == "channels"), int(plan.vec),
+                       int(plan.stage16), plan.points_per_block, *plan.grid)
 
 
 def _kernel(name: str):
-    source, n_ptr = _SIGNATURES[name]
-    fn = getattr(_build.load(source), name)
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn = _bound.get(name)
+    if fn is None:
+        source, fn_argtypes = _SIGNATURES[name]
+        fn = getattr(_build.load(source), name)
+        fn.argtypes = fn_argtypes
         fn.restype = ctypes.c_int
+        _bound[name] = fn
     return fn
 
 
 def _log2_group(C: int) -> int:
-    """Lanes per point: the smallest power of two >= C, at most 32."""
+    """The backward kernels' lanes per point: the smallest power of two >= C,
+    at most 32."""
     return min(5, max(0, (C - 1).bit_length()))
 
 
 def _check(name: str, points: torch.Tensor, *others: torch.Tensor):
     """Every tensor a float32, contiguous CUDA tensor on one device; points
     [N, P, 2] with N, P >= 1. Returns (N, P)."""
-    tensors = (points, *others)
-    if not all(t.is_cuda for t in tensors) or len({t.device for t in tensors}) != 1:
-        raise ValueError(f"{name}: every input must be a CUDA tensor, all on one device")
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError(f"{name}: inputs must be float32, got {[t.dtype for t in tensors]}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError(f"{name}: inputs must be contiguous")
-    if points.dim() != 3 or points.shape[2] != 2 or min(points.shape[:2]) < 1:
-        raise ValueError(f"{name}: points must be [N, P, 2], got {tuple(points.shape)}")
-    return points.shape[0], points.shape[1]
+    device = points.get_device()
+    for t in (points, *others):
+        if not t.is_cuda or t.get_device() != device:
+            raise ValueError(f"{name}: every input must be a CUDA tensor, all on one device")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: inputs must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")
+    shape = points.shape
+    if len(shape) != 3 or shape[2] != 2 or shape[0] < 1 or shape[1] < 1:
+        raise ValueError(f"{name}: points must be [N, P, 2], got {tuple(shape)}")
+    return shape[0], shape[1]
 
 
-def _check_image(name: str, N: int, H: int, W: int, C: int) -> None:
-    if min(H, W, C) < 1 or H * W >= 2**31:
-        raise ValueError(f"{name}: image [{N}, {H}, {W}, {C}] is empty or too large for "
-                         "32-bit pixel indices")
+def _check_image(name: str, N: int, H: int, W: int, C: int, P: int) -> None:
+    if H < 1 or W < 1 or C < 1 or H * W * C >= 2**31 or P * max(C, 2) >= 2**31:
+        raise ValueError(f"{name}: image [{N}, {H}, {W}, {C}] at {P} points is empty or too "
+                         "large for 32-bit offsets within an image")
 
 
 def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def point_sample_fwd_cuda(feat: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
@@ -83,16 +159,19 @@ def point_sample_fwd_cuda(feat: torch.Tensor, points: torch.Tensor) -> torch.Ten
     [0, 1] -> [N, P, C], all float32 and contiguous."""
     global fwd_launches
     N, P = _check("point_sample_fwd_cuda", points, feat)
-    if feat.dim() != 4 or feat.shape[0] != N:
+    shape = feat.shape
+    if len(shape) != 4 or shape[0] != N:
         raise ValueError(f"point_sample_fwd_cuda: feat must be [N, H, W, C] with N = {N}, "
-                         f"got {tuple(feat.shape)}")
-    _, H, W, C = feat.shape
-    _check_image("point_sample_fwd_cuda", N, H, W, C)
-    out = torch.empty((N, P, C), dtype=torch.float32, device=feat.device)
-    err = _kernel("point_sample_fwd")(feat.data_ptr(), points.data_ptr(), out.data_ptr(),
-                                      N, H, W, C, P, _log2_group(C), _stream(feat))
+                         f"got {tuple(shape)}")
+    _, H, W, C = shape
+    _check_image("point_sample_fwd_cuda", N, H, W, C, P)
+    out = feat.new_empty((N, P, C))
+    fp, pp = feat.data_ptr(), points.data_ptr()
+    plan = _plan_args(N, H, W, C, P, fp % 16, pp % 16)
+    err = _kernel("point_sample_fwd")(fp, pp, out.data_ptr(), plan, _stream(feat))
     if err != 0:
-        raise RuntimeError(f"point_sample_fwd launch failed: CUDA error {err}")
+        raise RuntimeError(f"point_sample_fwd launch failed: CUDA error {err} "
+                           f"(plan {list(plan)})")
     fwd_launches += 1
     return out
 
@@ -108,7 +187,7 @@ def point_sample_dimg_cuda(points: torch.Tensor, grad_out: torch.Tensor,
         raise ValueError(f"point_sample_dimg_cuda: grad_out must be [{N}, {P}, C], got "
                          f"{tuple(grad_out.shape)}")
     C = grad_out.shape[2]
-    _check_image("point_sample_dimg_cuda", N, H, W, C)
+    _check_image("point_sample_dimg_cuda", N, H, W, C, P)
     dfeat = torch.zeros((N, H, W, C), dtype=torch.float32, device=grad_out.device)
     err = _kernel("point_sample_bwd_dimg")(points.data_ptr(), grad_out.data_ptr(),
                                            dfeat.data_ptr(), N, H, W, C, P, _log2_group(C),
@@ -129,7 +208,7 @@ def point_sample_dxy_cuda(feat: torch.Tensor, points: torch.Tensor,
         raise ValueError(f"point_sample_dxy_cuda: feat {tuple(feat.shape)} and grad_out "
                          f"{tuple(grad_out.shape)} do not match points {tuple(points.shape)}")
     _, H, W, C = feat.shape
-    _check_image("point_sample_dxy_cuda", N, H, W, C)
+    _check_image("point_sample_dxy_cuda", N, H, W, C, P)
     dpoints = torch.empty((N, P, 2), dtype=torch.float32, device=feat.device)
     err = _kernel("point_sample_bwd_dxy")(feat.data_ptr(), points.data_ptr(),
                                           grad_out.data_ptr(), dpoints.data_ptr(),
@@ -164,4 +243,6 @@ class PointSampleFunction(torch.autograd.Function):
 def point_sample_cuda(feat: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     """feat [N, H, W, C] at points [N, P, 2] in [0, 1] -> [N, P, C] on the
     card, differentiable in both inputs."""
-    return PointSampleFunction.apply(feat, points)
+    if torch.is_grad_enabled() and (feat.requires_grad or points.requires_grad):
+        return PointSampleFunction.apply(feat, points)
+    return point_sample_fwd_cuda(feat, points)  # no graph to record: skip the Function

@@ -78,3 +78,9 @@ def test_fallback_on_cpu_is_exact_top_k():
     for m in range(M):  # the same set of points (top-k orders ties its own way)
         a = {tuple(p) for p in got[m, :48].tolist()}
         assert a == {tuple(p) for p in want[m].tolist()}
+
+
+def test_argtypes_match_the_c_signature():
+    from tests.test_torch_point_sample import c_signature
+
+    assert gather_cuda.ARGTYPES == c_signature(gather_cuda.SOURCE, "gather_points")

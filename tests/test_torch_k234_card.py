@@ -13,7 +13,7 @@ with only torch. Skip tests/conftest.py, which configures jax:
 import pytest
 import torch
 
-from chip_smoke import TOL_FP32, k1_inputs, point_inputs
+from chip_smoke import TOL_FP32, k1_inputs, misaligned, point_inputs
 from combo_avs_torch.ops import deform_attn_cuda, point_sample_cuda
 from combo_avs_torch.ops.deform_attn import ms_deform_attn_plain
 from combo_avs_torch.ops.grid_sample import point_sample, point_sample_plain
@@ -26,6 +26,22 @@ POINTS = {  # feat [N, H, W, C] at P points
     "labels": (3, 224, 224, 1, 2000),
     "matcher": (2, 56, 56, 100, 12544),
     "ragged": (3, 7, 5, 33, 101),
+    # the forward's launch-plan edges (ops/point_sample_cuda.py::launch_plan)
+    "c3_p_odd": (3, 56, 56, 3, 12545),  # staged, scalar tail path
+    "c4_staged": (3, 32, 32, 4, 1003),
+    "c4_global": (2, 56, 56, 4, 1000),  # 50176 bytes: the channels kernel
+    "c2_vec": (3, 56, 56, 2, 1030),  # vector path, the last 2 points scalar
+    "c3_labels": (2, 224, 224, 3, 999),
+    "at_stage_limit": (2, 64, 64, 3, 4096),  # 49152 bytes, staged
+    "one_over_stage_limit": (2, 1, 12289, 1, 3001),
+    "channels_vec": (2, 56, 56, 8, 777),
+    "many_images": (70000, 2, 2, 1, 6),  # more images than grid rows
+}
+MISALIGNED = {  # inputs one float off their allocation's 16-byte alignment
+    "c1_staged": (4, 56, 56, 1, 2048),
+    "c4_global": (2, 56, 56, 4, 1000),
+    "c3_labels": (2, 224, 224, 3, 999),
+    "channels": (2, 56, 56, 100, 300),
 }
 
 
@@ -103,6 +119,31 @@ def test_point_sample_matches_plain(cuda_device, case):
     want_df, want_dp = _plain_grads(point_sample_plain, (feat, pts), g)
     _close(got_df, want_df)
     _close(got_dp, want_dp)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(MISALIGNED))
+@pytest.mark.parametrize("which", ["feat", "points", "both"])
+def test_point_sample_fwdmisaligned(cuda_device, case, which):
+    """Inputs off the 16-byte alignment take the plan's tail-safe path and
+    give the aligned inputs' result, bit for bit."""
+    n, h, w, c, p = MISALIGNED[case]
+    feat, pts = point_inputs(n, h, w, c, p, cuda_device, seed=10)
+    f = misaligned(feat) if which in ("feat", "both") else feat
+    q = misaligned(pts) if which in ("points", "both") else pts
+    assert f.is_contiguous() and q.is_contiguous()
+    plan = point_sample_cuda.launch_plan(n, h, w, c, p, f.data_ptr(), q.data_ptr())
+    if which != "feat" and plan.kernel == "staged":  # no float4 point loads
+        assert not plan.vec
+    if which != "points" and plan.kernel == "channels":  # no float4 channel units
+        assert not plan.vec
+    if which != "points" and plan.kernel == "staged":  # the copy goes 4 bytes at a time
+        assert not plan.stage16
+    got = point_sample_cuda.point_sample_fwd_cuda(f, q)
+    want = point_sample_cuda.point_sample_fwd_cuda(feat, pts)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    _close(got, point_sample_plain(feat, pts))
 
 
 @pytest.mark.gpu

@@ -47,11 +47,20 @@ def _plain_with_grads(feat, pts, g):
     return out.detach().numpy(), f.grad.numpy(), p.grad.numpy()
 
 
-@pytest.mark.parametrize("shape", [(2, 8, 16, 1, 90), (3, 16, 8, 5, 61)], ids=["C1", "C5"])
+@pytest.mark.parametrize("shape", [(2, 8, 16, 1, 90), (3, 16, 8, 5, 61), (2, 8, 16, 3, 91),
+                                   (3, 16, 8, 4, 64), (1, 1, 12289, 1, 257)],
+                         ids=["C1", "C5", "C3_P_odd", "C4", "one_over_stage_limit"])
 def test_plain_matches_jax_fp64(shape):
-    """The same function in float64: values and both gradients to 1e-12."""
+    """The same function in float64: values and both gradients to 1e-12. The
+    edge shapes of the CUDA forward's launch plan are among them: odd P
+    (scalar tail), C = 3 and 4 (channels in registers) and an image of
+    12289 floats, one over what fits in shared memory (48 KB). Its side is
+    not a power of two, so its points lie on multiples of 2^-10, where p * W
+    is exact on both sides."""
     N, H, W, C, P = shape
     feat, pts = _inputs(N, H, W, C, P, seed=C)
+    if W & (W - 1):
+        pts = np.round(pts * 1024) / 1024
     g = np.random.RandomState(10 + C).randn(N, P, C)
     with jax.enable_x64(True):
         want, vjp = jax.vjp(jax_point_sample, jnp.asarray(feat), jnp.asarray(pts))
@@ -73,7 +82,8 @@ def test_grid_sample_matches_jax_fp64():
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
 
 
-@pytest.mark.parametrize("shape", [(2, 8, 16, 1, 700), (3, 16, 8, 3, 300)], ids=["C1", "C3"])
+@pytest.mark.parametrize("shape", [(2, 8, 16, 1, 700), (3, 16, 8, 3, 300), (2, 8, 16, 4, 301)],
+                         ids=["C1", "C3", "C4_P_odd"])
 def test_plain_matches_pallas_interpret_fp32(shape):
     """The TPU kernel's tent-matrix form (K3 forward, K4 backward) in
     interpret mode: the same fp32 products summed in another order, 1e-5."""
@@ -132,6 +142,129 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 @pytest.mark.parametrize("C,group", [(1, 0), (2, 1), (3, 2), (4, 2), (5, 3), (32, 5),
                                      (33, 5), (100, 5)])
 def test_lanes_per_point(C, group):
-    """The kernels give each point the smallest power of two of lanes that
-    covers its channels, at most a warp."""
+    """The backward kernels give each point the smallest power of two of
+    lanes that covers its channels, at most a warp."""
     assert point_sample_cuda._log2_group(C) == group
+
+
+STEP = point_sample_cuda.THREADS * point_sample_cuda.POINTS_PER_THREAD
+
+
+@pytest.mark.parametrize("H,W,C,staged", [
+    (56, 56, 1, True),  # the criterion's masks
+    (56, 56, 3, True),  # 37632 bytes
+    (64, 64, 3, True),  # 49152 bytes: exactly the limit
+    (1, 12288, 1, True),
+    (1, 12289, 1, False),  # one float over the limit
+    (56, 56, 4, False),  # 50176 bytes
+    (224, 224, 1, False),  # the point labels' masks
+    (224, 224, 3, False),  # the matcher's targets
+])
+def test_plan_stages_exactly_when_the_image_fits(H, W, C, staged):
+    """C <= 4 images of at most 48 KB go to the staged kernel, the rest to the
+    channels kernel, which gathers from global memory."""
+    plan = point_sample_cuda.launch_plan(120, H, W, C, 12544)
+    assert plan.kernel == ("staged" if staged else "channels")
+
+
+@pytest.mark.parametrize("N,H,W,C,P", [
+    (120, 56, 56, 1, 37632), (120, 56, 56, 1, 12544), (120, 224, 224, 1, 12544),
+    (40, 224, 224, 3, 12544), (40, 56, 56, 100, 12544), (3, 7, 5, 33, 101), (1, 8, 8, 2, 1),
+    (5000, 56, 56, 1, 3), (2, 16, 16, 7, 100000), (70000, 2, 2, 1, 5),
+])
+def test_plan_grid_covers_every_point(N, H, W, C, P):
+    """Every point of every image falls in exactly one block: the point
+    blocks tile [0, P) with no block wholly past it, and the image rows of the
+    grid, looping in steps of the row count, reach all N images."""
+    plan = point_sample_cuda.launch_plan(N, H, W, C, P)
+    blocks, rows = plan.grid
+    assert blocks * plan.points_per_block >= P > (blocks - 1) * plan.points_per_block
+    assert rows == min(N, point_sample_cuda.GRID_ROWS) and sorted(
+        {n % rows for n in range(0, N, max(1, N // 1000))} | set(range(rows))) == list(range(rows))
+    if plan.kernel == "staged":
+        assert C <= 4 and plan.points_per_block % STEP == 0
+    else:
+        assert 1 <= plan.points_per_block <= point_sample_cuda.MAX_CHANNEL_POINTS
+
+
+def test_plan_folds_images_beyond_the_grid_rows():
+    """N above the grid's 65535 rows: the grid keeps 65535 rows and each
+    loops over the images n, n + 65535, ... (no second launch, no error)."""
+    for C in (1, 100):
+        plan = point_sample_cuda.launch_plan(70000, 2, 2, C, 5)
+        assert plan.grid[1] == point_sample_cuda.GRID_ROWS
+        assert -(-70000 // plan.grid[1]) == 2
+
+
+@pytest.mark.parametrize("H,C,P,feat_ptr,points_ptr,vec", [
+    (56, 1, 12544, 0, 0, True),
+    (56, 1, 12545, 0, 0, False),  # odd P: the second image's points are 8-byte aligned
+    (56, 3, 12545, 0, 0, False),
+    (56, 3, 12546, 0, 0, False),  # P * C not a multiple of 4: an image's outputs misalign
+    (56, 2, 12548, 0, 0, True),
+    (56, 1, 12544, 0, 8, False),  # points 8 bytes off a 16-byte boundary
+    (56, 2, 12544, 4, 0, True),  # staged corners come from aligned shared memory
+    (32, 4, 12544, 8, 0, True),
+    (224, 4, 12544, 8, 0, False),  # channel units need a 16-byte aligned image
+    (224, 4, 12545, 0, 8, True),  # the channels kernel reads points one float at a time
+    (224, 1, 12544, 0, 0, False),  # C = 1, 3: one float a unit
+    (224, 3, 12544, 0, 0, False),
+])
+def test_plan_takes_the_tail_safe_path(H, C, P, feat_ptr, points_ptr, vec):
+    """Vector loads and stores only where every image's points, outputs and
+    corners are aligned for them; otherwise the scalar path. The last points
+    of an image that fill no whole thread take it too, inside the kernel."""
+    plan = point_sample_cuda.launch_plan(120, H, H, C, P, feat_ptr, points_ptr)
+    assert plan.kernel == ("staged" if H * H * C * 4 <= 48 * 1024 else "channels")
+    assert plan.vec == vec
+
+
+@pytest.mark.parametrize("feat_ptr,H,W,C,stage16", [
+    (0, 56, 56, 1, True), (4, 56, 56, 1, False), (0, 7, 5, 1, False), (0, 7, 4, 1, True),
+])
+def test_plan_stages_in_16_bytes_only_when_aligned(feat_ptr, H, W, C, stage16):
+    plan = point_sample_cuda.launch_plan(3, H, W, C, 100, feat_ptr)
+    assert plan.kernel == "staged" and plan.stage16 == stage16
+
+
+@pytest.mark.parametrize("H,C,feat_ptr,vec,per_block", [
+    (56, 100, 0, True, 40),  # the matcher: 25 float4 units a point
+    (56, 100, 4, False, 10),
+    (56, 33, 0, False, 31),
+    (56, 5, 0, False, 204),
+    (56, 8, 0, True, 256),  # capped by the corner table
+    (224, 1, 0, False, 256),  # the point labels: one unit a point
+    (224, 3, 0, False, 256),  # the matcher's targets
+])
+def test_plan_channels_kernel(H, C, feat_ptr, vec, per_block):
+    """C > 4, or an image too big to stage: the channels kernel, float4
+    units when C % 4 == 0 and the image is 16-byte aligned, about 4 units a
+    thread, at most 256 points a block."""
+    plan = point_sample_cuda.launch_plan(40, H, H, C, 12544, feat_ptr)
+    assert (plan.kernel, plan.vec, plan.points_per_block) == ("channels", vec, per_block)
+
+
+def c_signature(source: str, name: str) -> list:
+    """The parameter types of `extern "C" int name(...)` in csrc/<source>, as
+    ctypes types: a void pointer (the stream too) is c_void_p, an int c_int,
+    an int array POINTER(c_int)."""
+    import ctypes
+    import os
+    import re
+
+    from combo_avs_torch.ops import _build
+
+    with open(os.path.join(_build.CSRC, source)) as f:
+        text = f.read()
+    params = [p.strip() for p in
+              re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", text).group(1).split(",")]
+    types = {"int": ctypes.c_int, "const int*": ctypes.POINTER(ctypes.c_int)}
+    return [ctypes.c_void_p if "void*" in p else types[p.rsplit(" ", 1)[0]] for p in params]
+
+
+@pytest.mark.parametrize("name", sorted(point_sample_cuda._SIGNATURES))
+def test_argtypes_match_the_c_signature(name):
+    """ctypes passes exactly the C function's arguments: a count or a type
+    off would shift the stream into an int (the kernels cannot run here)."""
+    source, argtypes = point_sample_cuda._SIGNATURES[name]
+    assert argtypes == c_signature(source, name)
