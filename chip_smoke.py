@@ -17,7 +17,9 @@ non-zero and never prints its last line:
      the plain version's call ms; and the least time the card could take
      (bound):
        K1 deformable-attention forward (fp32 and bf16 value),
-       K2 its backward, K3/K5 the point-sample forward, K4 its backward,
+       K2 its backward under both launch plans (level_slice, the plan's
+       choice, and global; also a level one row over the opt-in limit),
+       K3/K5 the point-sample forward, K4 its backward,
        K7 the fused semantic inference (fp32 and bf16 masks; also the time
        of F.interpolate alone), K6 the point gather (against torch.gather);
      then each kernel ranked against its library call by device ms;
@@ -409,39 +411,76 @@ def phase_k1(dev: torch.device) -> dict:
     return result
 
 
+def _one_level(rows: int) -> tuple:
+    """An (H, W) level of exactly `rows` positions, as square as rows allows."""
+    h = max(d for d in range(1, int(rows ** 0.5) + 1) if rows % d == 0)
+    return h, rows // h
+
+
 def phase_k2(dev: torch.device) -> dict:
-    """K2 against autograd of the plain forward, at the training shape (40
-    frames) and a ragged one."""
+    """K2 against autograd of the plain forward under both launch plans: the
+    training shape (40 frames) through the plan's choice (level_slice) and
+    forced through the global kernel (the plan at an opt-in limit of 0), a
+    ragged shape, and a largest level one row more than the level-slice
+    kernel's shared memory takes at the card's opt-in limit, through the
+    plan's own choice (global).
+    Both plans are timed at the training shape."""
     from combo_avs_torch.ops import deform_attn_cuda as k
     from combo_avs_torch.ops.deform_attn import ms_deform_attn_plain
 
+    optin = k.smem_optin(dev.index)
+    D, P = K1_SHAPE["D"], K1_SHAPE["P"]
+    fits = max(r for r in range(1, optin // (8 * D) + 1)
+               if k.level_slice_bytes(r, D, P) <= optin)
+    over = _one_level(fits + 1)
     Lq = sum(h * w for h, w in K1_LEVELS)
-    result = {}
-    cases = [("train", K1_LEVELS, dict(K1_SHAPE, B=TRAIN_N), Lq),
-             ("ragged", ((3, 5), (6, 10)), dict(B=3, M=3, D=16, P=4), 37)]
-    for name, levels, shp, lq in cases:
-        value, loc, w = k1_inputs(shp["B"], shp["M"], shp["D"], shp["P"], levels, lq,
-                                  torch.float32, dev, seed=10 + len(name))
-        g = torch.randn((shp["B"], lq, shp["M"] * shp["D"]), device=dev,
-                        generator=torch.Generator(device=dev).manual_seed(len(name)))
-        got = k.ms_deform_attn_bwd_cuda(value, levels, loc, w, g)
-        leaves = [t.clone().requires_grad_() for t in (value, loc, w)]
-        out = ms_deform_attn_plain(leaves[0], levels, leaves[1], leaves[2])
-        want = torch.autograd.grad(out, leaves, g, retain_graph=True)
-        errs = [compare(f"[k2] {name} d{n}", a, b, TOL_FP32)
+    train = dict(K1_SHAPE, B=TRAIN_N)
+    result = {"smem_optin": optin}
+    cases = [  # name, levels, shape, queries, the opt-in limit the plan is made for, its kernel
+        ("train", K1_LEVELS, train, Lq, optin, "level_slice"),
+        ("train_global", K1_LEVELS, train, Lq, 0, "global"),
+        ("ragged", ((3, 5), (6, 10)), dict(B=3, M=3, D=16, P=4), 37, optin, "level_slice"),
+        ("over_optin", ((7, 7), over), dict(B=2, M=2, D=D, P=P), 100, optin, "global"),
+    ]
+    inputs = {}
+    for name, levels, shp, lq, plan_optin, kernel in cases:
+        plan = k.bwd_launch_plan(levels, lq, shp["M"], shp["D"], shp["P"], plan_optin)
+        if plan.kernel != kernel:
+            raise AssertionError(f"[k2] {name}: the launch plan chose {plan}, expected {kernel}")
+        key = (levels, tuple(sorted(shp.items())), lq)
+        if key not in inputs:  # train and train_global share their inputs
+            value, loc, w = k1_inputs(shp["B"], shp["M"], shp["D"], shp["P"], levels, lq,
+                                      torch.float32, dev, seed=10 + len(name))
+            g = torch.randn((shp["B"], lq, shp["M"] * shp["D"]), device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(len(name)))
+            leaves = [t.clone().requires_grad_() for t in (value, loc, w)]
+            out = ms_deform_attn_plain(leaves[0], levels, leaves[1], leaves[2])
+            want = torch.autograd.grad(out, leaves, g, retain_graph=True)
+            inputs[key] = (value, loc, w, g, leaves, out, want)
+        value, loc, w, g, leaves, out, want = inputs[key]
+        # the chosen plan is passed only where it is forced, so that the
+        # other cases run the wrapper's own choice
+        forced = plan if plan_optin != optin else None
+        fn = lambda: k.ms_deform_attn_bwd_cuda(value, levels, loc, w, g, plan=forced)  # noqa: E731
+        got = fn()
+        errs = [compare(f"[k2] {name} ({plan.kernel}, levels {levels}) d{n}", a, b, TOL_FP32)
                 for n, a, b in zip(("value", "loc", "weights"), got, want)]
-        if name == "train":
-            t = timings(lambda: k.ms_deform_attn_bwd_cuda(value, levels, loc, w, g),
-                        plain=lambda: torch.autograd.grad(out, leaves, g, retain_graph=True))
-            # per in-level corner and channel: <g, v>, three FMAs into the
-            # weight and the two coordinate sums, the dvalue term a*w*g and its add
-            bd = bound(nbytes(value, loc, w, g, *got),
-                       10 * shp["D"] * deform_corners(levels, loc))
-            log(f"[k2] {name}: {describe(t)} (autograd backward); bound "
-                f"{bd['bound_ms']:.4f} ms by {bd['bound_by']}")
-            result = dict(max_abs_err=max(e["max_abs_err"] for e in errs),
-                          max_rel_err=max(e["max_rel_err"] for e in errs), **t, **bd)
-        del out, leaves
+        if not name.startswith("train"):
+            continue
+        plain = lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)  # noqa: E731
+        t = timings(fn, plain=plain if name == "train" else None)
+        # per in-level corner and channel: <g, v>, three FMAs into the
+        # weight and the two coordinate sums, the dvalue term a*w*g and its add
+        bd = bound(nbytes(value, loc, w, g, *got), 10 * shp["D"] * deform_corners(levels, loc))
+        log(f"[k2] {name}: {plan.kernel} plan {plan}: {describe(t)} (autograd backward); "
+            f"bound {bd['bound_ms']:.4f} ms by {bd['bound_by']} "
+            f"({bd['bound_ms'] / t['ms']:.0%} of it)")
+        result[plan.kernel] = dict(max_abs_err=max(e["max_abs_err"] for e in errs),
+                                   max_rel_err=max(e["max_rel_err"] for e in errs),
+                                   plan=plan._asdict(), **t, **bd)
+    ls, gl = result["level_slice"], result["global"]
+    log(f"[k2] train, device ms: level_slice {ls['ms']:.4f} against global {gl['ms']:.4f} "
+        f"({ls['ms'] / gl['ms']:.2f}x); the card's opt-in limit {optin} bytes per block")
     return result
 
 
@@ -909,30 +948,86 @@ def phase_card_vs_cpu(model) -> None:
 
 
 class SharedMatching:
-    """The criterion's matcher for the card-vs-CPU comparison: it records
-    the CPU pass's assignments and hands them to the card pass, so that a
-    near-tie between two queries' matching costs, which float32 rounding can
-    break either way, cannot swap the mask a loss is taken on (the weights
-    come from the nondeterministic training steps, so such a tie shows up in
-    some runs and not others). The card's own matcher still runs on the card
-    pass; how many slots it matched otherwise is counted."""
+    """The criterion's matcher for the card-vs-CPU comparison. The CPU pass
+    records its cost matrices and assignments and the card pass takes the
+    CPU's assignment, so that a near-tie between two queries' matching
+    costs, which float32 rounding can break either way, cannot swap the mask
+    a loss is taken on (the weights come from the nondeterministic training
+    steps, so such a tie shows up in some runs and not others).
+
+    The card's own matcher still runs on the card pass, and `check` holds
+    its assignment to what a tie cannot break: per frame, with delta the
+    largest |C_card - C_cpu| over the frame's valid slots and K_v their
+    number, an assignment optimal for C_card costs at most 2 K_v delta more
+    under C_cpu than the CPU's optimum, plus the solver's float32 rounding.
+    A near-tie passes; a wrong assignment fails."""
 
     def __init__(self, matcher):
         self.matcher, self.recorded, self.replay = matcher, [], None
-        self.slots = self.differ = 0
+        self.slots = self.differ = self.frames = 0
+        self.tightest = None  # (excess over the CPU optimum, its bound, delta)
 
     def __getattr__(self, name):  # num_points, for the draws
         return getattr(self.matcher, name)
 
     def __call__(self, *args):
+        from combo_avs_torch.losses.matcher import BIG_COST
+
         assign = self.matcher(*args)
+        # the cost the matcher solves: cost_matrix, then __call__'s nan_to_num
+        cost = torch.nan_to_num(self.matcher.cost_matrix(*args), nan=BIG_COST, posinf=BIG_COST,
+                                neginf=-BIG_COST).double().cpu()
         if self.replay is None:
-            self.recorded.append(assign)
+            self.recorded.append((cost, assign))
             return assign
-        want = self.replay.pop(0).to(assign.device)
+        cost_cpu, want = self.replay.pop(0)
+        self.check(cost_cpu, want, cost, assign.cpu(), args[5].cpu())
+        want = want.to(assign.device)
         self.slots += want.numel()
         self.differ += int((want != assign).sum())
         return want
+
+    def check(self, cost_cpu, assign_cpu, cost_card, assign_card, valid):
+        """cost_* [N, Q, K] float64, assign_* [N, K] (-1 on an invalid
+        slot), valid [N, K]; raises where the card's assignment reuses a
+        query or costs more under C_cpu than the bound allows.
+
+        The rounding term is 1e-5 x max(1, |optimum|), or the float32
+        rounding bound of the card solver's sums where that is larger: the
+        solver (`ops/lsap.py`) compares float32 totals of K terms, BIG_COST
+        for each invalid slot included, and a sum of K terms is off by at
+        most (K - 1) 2^-24 times the sum of their magnitudes, for each of
+        the two totals it compares (its choice and the CPU's)."""
+        from combo_avs_torch.losses.matcher import BIG_COST
+
+        N, Q, K = cost_cpu.shape
+        for n in range(N):
+            ks = valid[n].nonzero().flatten()
+            if not len(ks):
+                continue
+            q_card, q_cpu = assign_card[n, ks], assign_cpu[n, ks]
+            if (len(set(q_card.tolist())) != len(ks) or int(q_card.min()) < 0
+                    or int(q_card.max()) >= Q):
+                raise AssertionError(f"[train-card-vs-cpu] the card's matcher assigned queries "
+                                     f"{q_card.tolist()} to the {len(ks)} valid slots of a frame")
+            delta = float((cost_card[n][:, ks] - cost_cpu[n][:, ks]).abs().max())
+            optimum = float(cost_cpu[n, q_cpu, ks].sum())
+            got = float(cost_cpu[n, q_card, ks].sum())
+            big = BIG_COST * (K - len(ks))  # the invalid slots' share of each solver total
+            magnitude = (float(cost_card[n, q_card, ks].abs().sum())
+                         + float(cost_card[n, q_cpu, ks].abs().sum()) + 2 * big)
+            rounding = max(1e-5 * max(1.0, abs(optimum)), (K - 1) * 2.0**-24 * magnitude)
+            allowed = 2 * len(ks) * delta + rounding
+            if got - optimum > allowed:
+                raise AssertionError(f"[train-card-vs-cpu] the card's matching {q_card.tolist()} "
+                                     f"costs {got:.6f} under the CPU's costs, the CPU optimum "
+                                     f"{q_cpu.tolist()} {optimum:.6f}: {got - optimum:.3e} above "
+                                     f"it, more than 2 K_v delta + rounding = {allowed:.3e} "
+                                     f"(delta {delta:.3e})")
+            self.frames += 1
+            if self.tightest is None or (got - optimum) / allowed > (
+                    self.tightest[0] / self.tightest[1]):
+                self.tightest = (got - optimum, allowed, delta)
 
 
 def phase_train_card_vs_cpu(model) -> dict:
@@ -972,8 +1067,12 @@ def phase_train_card_vs_cpu(model) -> dict:
         res[name] = ({k: float(v.detach()) for k, v in losses.items()}, grads)
         log(f"[train-card-vs-cpu] {name}: losses and gradients in {time.perf_counter() - t0:.1f} s")
     model.zero_grad(set_to_none=True)
+    excess, allowed, delta = matching.tightest
     log(f"[train-card-vs-cpu] the card's matcher chose another query for {matching.differ} of "
-        f"{matching.slots} slots (a near-tie in the cost); both sides took the CPU's matching")
+        f"{matching.slots} slots (a near-tie in the cost); both sides took the CPU's matching. "
+        f"Its own assignment in each of {matching.frames} frames: distinct queries, cost under "
+        f"the CPU's costs within the bound; tightest frame {excess:.3e} above the CPU optimum "
+        f"against a bound of {allowed:.3e} (delta {delta:.3e})")
     (lc, gc), (lg, gg) = res["cpu"], res["gpu"]
     if set(gc) != set(gg) or set(lc) != set(lg):
         raise AssertionError("[train-card-vs-cpu] different losses or gradient sets")
@@ -1084,8 +1183,11 @@ def main(argv=None) -> int:
                      plain_ms_bf16=k1["bf16"]["plain_ms"], bound_ms_bf16=k1["bf16"]["bound_ms"]),
         kernel_entry("ms_deform_attn_bwd", "combo_avs_torch/csrc/ms_deform_attn_bwd.cu",
                      REPLACES["k2"], {"eval": ev["k2"], "train": tl["k2"],
-                                       "train_fallback": fb["k2"]}, k2,
-                     shape="value [40,1029,8,32] fp32"),
+                                       "train_fallback": fb["k2"]},
+                     k2["level_slice"],
+                     shape="value [40,1029,8,32] fp32", plan="level_slice",
+                     **{f"global_{k}": k2["global"][k] for k in ("max_abs_err", "ms", "call_ms",
+                                                                 "host_us", "device_source")}),
         kernel_entry("point_sample_fwd", "combo_avs_torch/csrc/point_sample_fwd.cu",
                      REPLACES["k3"], {"eval": ev["k3"], "train": tl["k3"],
                                        "train_fallback": fb["k3"]},

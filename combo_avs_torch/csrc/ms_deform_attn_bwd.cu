@@ -19,26 +19,59 @@
 // autograd of the plain version and the TPU kernel's tent derivative give),
 // and corners outside a level contribute to no gradient.
 //
-// What bounds it on this card: memory traffic through L2. Per (b, q, m) the
-// kernel reads up to 4 corner rows per point and adds 4 rows into dvalue with
-// fp32 atomics; value and dvalue (42 MB each at the training shape, 40 frames
-// x 1029 tokens x 8 heads x 32 channels) do not both fit in the 50 MB L2.
-// The arithmetic (a few FMAs per element read) is negligible.
+// Two kernels; ops/deform_attn_cuda.py::bwd_launch_plan picks one from the
+// shapes and the card's opt-in shared-memory limit, and this file only
+// executes the plan it is given.
 //
-// Design, mirroring the forward:
-//  * one warp per (b, q, m), lanes over the D channels, so each corner read
-//    and each atomic add is one contiguous D-float row;
-//  * lanes 0..L*P-1 compute one sampling point's corner rows and weights once;
-//    the point loop broadcasts them with shuffles;
-//  * per point, each lane forms its channel's products g * v_k, the warp
-//    reduces the three sums (dweights, dx, dy) with shuffles, and the lane
-//    that owns the point keeps them; dloc and dweights are stored once per
-//    point, coalesced;
-//  * dvalue is accumulated in a zeroed fp32 buffer with atomicAdd. Atomic
-//    order varies from run to run, so dvalue is not bitwise reproducible
-//    (a few fp32 roundings of each sum).
-// fp32 value only; the TPU kernel's tent matrices, GV = g V^T matmuls and
-// query blocking were workarounds for serial TPU gathers.
+//  * "global" (the first design): one warp per (b, q, m), its lanes over the
+//    D channels, so each corner read and each add into dvalue is one
+//    contiguous D-float row; the lanes that own a sampling point compute its
+//    corner rows and weights once and the point loop broadcasts them with
+//    shuffles; per point the warp reduces the three sums (dweights, dx, dy)
+//    with shuffles. dvalue is summed in a zeroed buffer with global fp32
+//    atomicAdd. What bounds it: L2 atomic traffic, about 506 M atomics into
+//    a 42 MB dvalue at the training shape (value [40, 1029, 8, 32]), which
+//    with value does not fit the 50 MB L2: 1.05-1.09 ms against a 0.066 ms
+//    bound (H100 at 700 W).
+//  * "level_slice": every sampling point belongs to one level, so
+//    dvalue[b, start_l : start_l + H_l * W_l, m, :] receives only the points
+//    of level l of head m in frame b. One block per (b, m, l) owns that
+//    slice. It copies the level's value rows of head m into dynamic shared
+//    memory (cp.async) and zeroes a dvalue slice beside them (2 x 100,352 B
+//    for the 28^2 level at D = 32, above 48 KB, so the launcher raises the
+//    function's opt-in limit). Its warps then walk the level's Lq * P
+//    sampling points, one lane per point (32 / P queries a warp at a time,
+//    their grad rows staged per warp): each lane loops over the D channels
+//    starting at its own lane index, so the warp's 32 accesses to rows of
+//    the value, dvalue and grad slices fall in distinct banks; it sums
+//    <g, v_k> per corner in registers (no shuffles: dweights and dloc come
+//    from the four corner sums), and adds a * w_k * g_c into the shared
+//    dvalue slice with atomicAdd. After a barrier the block stores the
+//    slice to dvalue once, a coalesced row at a time. Every dvalue, dloc and
+//    dweights element has exactly one owning block: no global atomics, and
+//    dvalue needs no zeroing. Each block walks Lq * P points whatever its
+//    level, so the blocks take about the same time; all reserve the largest
+//    level's shared memory, one block per SM at the training shape.
+//    What bounds it: the shared-memory adds. A shared float atomicAdd is a
+//    compare-and-swap loop on this card (ATOMS.CAST.SPIN in the SASS), and
+//    the compiler puts each add's loop in series with the next, so a warp
+//    waits out about one load and one swap for each of its 4 x D adds per
+//    point; more warps hide more of it (scripts/bench_deform_bwd_plans.py:
+//    1.69, 1.01 and 0.77 ms at 8, 16 and 24 warps; 32 do not fit beside the
+//    grad rows). Variants of this kernel timed once with the same script:
+//    with plain, racy adds 0.45 ms, with no adds 0.29 ms. Also tried: the
+//    first level-slice design, one warp per query with lanes over D (the
+//    global kernel's layout) and value gathered through L1, 1.11-2.30 ms at
+//    32-8 warps; the adds as batched 32-bit compare-and-swaps (ATOMS.CAS),
+//    3.45 ms; grad read through L1 instead of staged, which lets 32 warps
+//    fit, 0.80 ms.
+//
+// Atomic order (global atomics in one, shared ones in the other) varies from
+// run to run, so dvalue is not bitwise reproducible (a few fp32 roundings of
+// each sum). fp32 value only; the TPU kernel's tent matrices, GV = g V^T
+// matmuls and query blocking were workarounds for serial TPU gathers, and
+// its dval block resident across the query grid axis is what the level-slice
+// kernel's shared slice keeps.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -46,7 +79,8 @@
 namespace {
 
 constexpr int kMaxLevels = 4;
-constexpr int kWarpsPerBlock = 8;
+constexpr int kGlobalWarps = 8;  // the global kernel's warps per block
+constexpr int kMaxDevices = 64;
 
 struct Levels {
   int h[kMaxLevels];
@@ -54,8 +88,42 @@ struct Levels {
   int start[kMaxLevels];
 };
 
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-ms_deform_attn_bwd_kernel(const float* __restrict__ value,  // [B, S, M, D]
+// One sampling point, as the lane that owns it sees it: its corner rows (-1
+// outside the level), fractional parts and attention weight.
+struct Point {
+  int row[4];
+  float fx, fy, a;
+};
+
+// The point at flat index pt of an H x W level whose first row is row0.
+__device__ __forceinline__ Point setup_point(const float* __restrict__ loc,
+                                             const float* __restrict__ attw, int64_t pt, int H,
+                                             int W, int row0) {
+  Point p;
+  p.a = attw[pt];
+  // rounded as the plain version rounds (multiply, then subtract; no FMA),
+  // so both split a coordinate at the same corner and take the same slope;
+  // the same clamp as the forward: beyond [-1, W] every corner is outside
+  const float x = fminf(fmaxf(__fsub_rn(__fmul_rn(loc[2 * pt], (float)W), 0.5f), -2.f),
+                        (float)W + 1.f);
+  const float y = fminf(fmaxf(__fsub_rn(__fmul_rn(loc[2 * pt + 1], (float)H), 0.5f), -2.f),
+                        (float)H + 1.f);
+  const float x0f = floorf(x), y0f = floorf(y);
+  p.fx = x - x0f;
+  p.fy = y - y0f;
+  const int x0 = (int)x0f, y0 = (int)y0f;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int xi = x0 + (k & 1), yi = y0 + (k >> 1);
+    const bool valid = xi >= 0 && xi < W && yi >= 0 && yi < H;
+    p.row[k] = valid ? row0 + yi * W + xi : -1;
+  }
+  return p;
+}
+
+// "global": one warp per (b, q, m), all L * P points, dvalue by global atomics.
+__global__ void __launch_bounds__(kGlobalWarps * 32)
+ms_deform_attn_bwd_global(const float* __restrict__ value,  // [B, S, M, D]
                           const float* __restrict__ loc,    // [B, Lq, M, L, P, 2]
                           const float* __restrict__ attw,   // [B, Lq, M, L, P]
                           const float* __restrict__ grad,   // [B, Lq, M * D]
@@ -64,40 +132,16 @@ ms_deform_attn_bwd_kernel(const float* __restrict__ value,  // [B, S, M, D]
                           float* __restrict__ dattw,        // [B, Lq, M, L, P]
                           int S, int Lq, int M, int D, int L, int P, Levels lv) {
   const int lane = threadIdx.x & 31;
-  const int pair = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);  // q * M + m
+  const int pair = blockIdx.x * kGlobalWarps + (threadIdx.x >> 5);  // q * M + m
   const int b = blockIdx.y;
   if (pair >= Lq * M) return;  // whole warp leaves together
   const int q = pair / M;
   const int m = pair - q * M;
   const int LP = L * P;
-
-  // this lane's sampling point: corner rows (-1 outside the level), fractional
-  // parts and attention weight
-  int row[4] = {-1, -1, -1, -1};
-  float fx = 0.f, fy = 0.f, a = 0.f;
   const int64_t pt = ((int64_t)(b * Lq + q) * M + m) * LP + lane;
-  if (lane < LP) {
-    const int l = lane / P;
-    const int H = lv.h[l], W = lv.w[l];
-    a = attw[pt];
-    // rounded as the plain version rounds (multiply, then subtract; no FMA),
-    // so both split a coordinate at the same corner and take the same slope;
-    // the same clamp as the forward: beyond [-1, W] every corner is outside
-    const float x = fminf(fmaxf(__fsub_rn(__fmul_rn(loc[2 * pt], (float)W), 0.5f), -2.f),
-                          (float)W + 1.f);
-    const float y = fminf(fmaxf(__fsub_rn(__fmul_rn(loc[2 * pt + 1], (float)H), 0.5f), -2.f),
-                          (float)H + 1.f);
-    const float x0f = floorf(x), y0f = floorf(y);
-    fx = x - x0f;
-    fy = y - y0f;
-    const int x0 = (int)x0f, y0 = (int)y0f;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int xi = x0 + (k & 1), yi = y0 + (k >> 1);
-      const bool valid = xi >= 0 && xi < W && yi >= 0 && yi < H;
-      row[k] = valid ? lv.start[l] + yi * W + xi : -1;
-    }
-  }
+  const int l = lane < LP ? lane / P : 0;
+  Point me = {{-1, -1, -1, -1}, 0.f, 0.f, 0.f};
+  if (lane < LP) me = setup_point(loc, attw, pt, lv.h[l], lv.w[l], lv.start[l]);
 
   const int64_t row_stride = (int64_t)M * D;  // elements between value rows
   const int64_t vofs = (int64_t)b * S * row_stride + (int64_t)m * D;
@@ -109,10 +153,10 @@ ms_deform_attn_bwd_kernel(const float* __restrict__ value,  // [B, S, M, D]
   for (int i = 0; i < LP; ++i) {
     int r[4];
 #pragma unroll
-    for (int k = 0; k < 4; ++k) r[k] = __shfl_sync(0xffffffffu, row[k], i);
-    const float pfx = __shfl_sync(0xffffffffu, fx, i);
-    const float pfy = __shfl_sync(0xffffffffu, fy, i);
-    const float pa = __shfl_sync(0xffffffffu, a, i);
+    for (int k = 0; k < 4; ++k) r[k] = __shfl_sync(0xffffffffu, me.row[k], i);
+    const float pfx = __shfl_sync(0xffffffffu, me.fx, i);
+    const float pfy = __shfl_sync(0xffffffffu, me.fy, i);
+    const float pa = __shfl_sync(0xffffffffu, me.a, i);
     const float wx[2] = {1.f - pfx, pfx};
     const float wy[2] = {1.f - pfy, pfy};
     float sw = 0.f, sx = 0.f, sy = 0.f;
@@ -144,37 +188,193 @@ ms_deform_attn_bwd_kernel(const float* __restrict__ value,  // [B, S, M, D]
     }
   }
   if (lane < LP) {
-    const int l = lane / P;
     dattw[pt] = my_dw;
     dloc[2 * pt] = my_dx * (float)lv.w[l];
     dloc[2 * pt + 1] = my_dy * (float)lv.h[l];
   }
 }
 
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
+}
+
+// "level_slice": one block per (b, m, l), blockIdx.x = m * L + l and
+// blockIdx.y = b. Dynamic shared memory holds the level's value rows of head
+// m and its dvalue rows (each [H_l * W_l, D], `slice` floats reserved for
+// the largest level) and each warp's grad rows ([32 / P, D]).
+template <int kWarps>
+__global__ void __launch_bounds__(kWarps * 32)
+ms_deform_attn_bwd_level(const float* __restrict__ value, const float* __restrict__ loc,
+                         const float* __restrict__ attw, const float* __restrict__ grad,
+                         float* __restrict__ dvalue,  // [B, S, M, D], every element written
+                         float* __restrict__ dloc, float* __restrict__ dattw, int S, int Lq,
+                         int M, int D, int L, int P, Levels lv, int slice) {
+  extern __shared__ float smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int m = blockIdx.x / L, l = blockIdx.x - m * L, b = blockIdx.y;
+  const int H = lv.h[l], W = lv.w[l], HW = H * W;
+  const int per_warp = 32 / P;  // queries a warp takes at a time, all P points each
+  float* vs = smem;
+  float* ds = smem + slice;
+  float* gs = smem + 2 * slice + warp * per_warp * D;
+
+  const int64_t row_stride = (int64_t)M * D;
+  // the level's first value row of head m in frame b
+  const int64_t lofs = ((int64_t)b * S + lv.start[l]) * row_stride + (int64_t)m * D;
+  for (int r = warp; r < HW; r += kWarps)
+    for (int c = lane; c < D; c += 32) {
+      cp_async4(vs + r * D + c, value + lofs + r * row_stride + c);
+      ds[r * D + c] = 0.f;
+    }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  const int LP = L * P;
+  const int p = lane % P, ql = lane / P;  // this lane's point, and its query in the warp's group
+  const float* gsrc = grad + (int64_t)b * Lq * row_stride + (int64_t)m * D;
+  const float* grow = gs + (ql < per_warp ? ql : 0) * D;
+  for (int q0 = warp * per_warp; q0 < Lq; q0 += kWarps * per_warp) {
+    for (int i = lane; i < per_warp * D; i += 32) {
+      const int qi = i / D, q = q0 + qi;
+      gs[i] = q < Lq ? __ldg(gsrc + q * row_stride + (i - qi * D)) : 0.f;
+    }
+    __syncwarp();
+    const int q = q0 + ql;
+    const bool mine = ql < per_warp && q < Lq;
+    const int64_t pt = ((int64_t)(b * Lq + (mine ? q : 0)) * M + m) * LP + l * P + p;
+    Point me = {{-1, -1, -1, -1}, 0.f, 0.f, 0.f};
+    if (mine) me = setup_point(loc, attw, pt, H, W, 0);
+    const float wx[2] = {1.f - me.fx, me.fx};
+    const float wy[2] = {1.f - me.fy, me.fy};
+    int ofs[4];
+    float aw[4], sum[4];  // a * w_k, and <g, v_k> summed over the channels
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      ofs[k] = (me.row[k] < 0 ? 0 : me.row[k]) * D;  // an outside corner reads row 0, unused
+      aw[k] = me.a * (wx[k & 1] * wy[k >> 1]);
+      sum[k] = 0.f;
+    }
+    // each lane starts at its own channel and wraps around, so at D = 32
+    // the warp's 32 accesses to a row of each array fall in distinct banks
+    int c = lane % D;
+#pragma unroll 4
+    for (int i = 0; i < D; ++i) {
+      const float g = grow[c];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        sum[k] = fmaf(g, vs[ofs[k] + c], sum[k]);
+        if (me.row[k] >= 0) atomicAdd(ds + ofs[k] + c, aw[k] * g);
+      }
+      c = c + 1 == D ? 0 : c + 1;
+    }
+    __syncwarp();  // every lane has read gs before the next group overwrites it
+    if (mine) {
+      float dw = 0.f, sx = 0.f, sy = 0.f;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float s = me.row[k] >= 0 ? sum[k] : 0.f;
+        dw = fmaf(wx[k & 1] * wy[k >> 1], s, dw);
+        sx = fmaf((k & 1) ? wy[k >> 1] : -wy[k >> 1], s, sx);
+        sy = fmaf((k >> 1) ? wx[k & 1] : -wx[k & 1], s, sy);
+      }
+      dattw[pt] = dw;
+      dloc[2 * pt] = me.a * sx * (float)W;
+      dloc[2 * pt + 1] = me.a * sy * (float)H;
+    }
+  }
+  __syncthreads();
+  float* out = dvalue + lofs;
+  for (int r = warp; r < HW; r += kWarps)
+    for (int c = lane; c < D; c += 32) out[r * row_stride + c] = ds[r * D + c];
+}
+
+// Raise kernel's dynamic shared-memory limit to `bytes` on the current device,
+// once per device and size.
+template <int kWarps>
+cudaError_t allow_smem(int bytes) {
+  static int allowed[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < kMaxDevices && allowed[dev] >= bytes) return cudaSuccess;
+  e = cudaFuncSetAttribute(ms_deform_attn_bwd_level<kWarps>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess && dev < kMaxDevices) allowed[dev] = bytes;
+  return e;
+}
+
+template <int kWarps>
+int launch_level(const float* value, const float* loc, const float* attw, const float* grad,
+                 float* dvalue, float* dloc, float* dattw, int B, int S, int Lq, int M, int D,
+                 int L, int P, const Levels& lv, int largest, int grid_x, int smem,
+                 cudaStream_t s) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = allow_smem<kWarps>(smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  ms_deform_attn_bwd_level<kWarps><<<dim3(grid_x, B), kWarps * 32, smem, s>>>(
+      value, loc, attw, grad, dvalue, dloc, dattw, S, Lq, M, D, L, P, lv, largest * D);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// value, loc, attw, grad float32; dvalue float32 and zeroed by the caller;
-// dloc, dattw float32. hw holds (H_l, W_l) for the L <= 4 levels, in value's
-// level order. Returns cudaGetLastError() after the launch (0 = launched).
+// value, loc, attw, grad float32; dloc, dattw float32; dvalue float32, zeroed
+// by the caller for the global kernel (the level-slice kernel writes every
+// element). plan holds B, S, Lq, M, D, L, P, the kernel (0 global, 1
+// level_slice), threads per block, grid x (blocks per frame; the grid has B
+// rows), dynamic shared-memory bytes, then (H_l, W_l) for the L <= 4 levels
+// in value's level order (ops/deform_attn_cuda.py::_plan_args). Returns
+// cudaGetLastError() after the launch (0 = launched), or the error that
+// stopped it.
 extern "C" int ms_deform_attn_bwd(const void* value, const void* loc, const void* attw,
                                   const void* grad, void* dvalue, void* dloc, void* dattw,
-                                  int B, int S, int Lq, int M, int D, int L, int P,
-                                  const int* hw, void* stream) {
-  if (L < 1 || L > kMaxLevels || L * P > 32 || P < 1) return (int)cudaErrorInvalidValue;
+                                  const int* plan, void* stream) {
+  const int B = plan[0], S = plan[1], Lq = plan[2], M = plan[3], D = plan[4], L = plan[5],
+            P = plan[6], kernel = plan[7], threads = plan[8], grid_x = plan[9], smem = plan[10];
+  const int bad = (int)cudaErrorInvalidValue;
+  if (L < 1 || L > kMaxLevels || P < 1 || L * P > 32 || B < 1 || B > 65535 || Lq < 1 ||
+      M < 1 || D < 1 || grid_x < 1)
+    return bad;
   Levels lv = {};
-  int start = 0;
+  int start = 0, largest = 0;
   for (int l = 0; l < L; ++l) {
-    lv.h[l] = hw[2 * l];
-    lv.w[l] = hw[2 * l + 1];
+    lv.h[l] = plan[11 + 2 * l];
+    lv.w[l] = plan[12 + 2 * l];
     lv.start[l] = start;
     start += lv.h[l] * lv.w[l];
+    largest = lv.h[l] * lv.w[l] > largest ? lv.h[l] * lv.w[l] : largest;
   }
-  if (start != S) return (int)cudaErrorInvalidValue;
-  dim3 grid((Lq * M + kWarpsPerBlock - 1) / kWarpsPerBlock, B);
-  ms_deform_attn_bwd_kernel<<<grid, kWarpsPerBlock * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(value), static_cast<const float*>(loc),
-      static_cast<const float*>(attw), static_cast<const float*>(grad),
-      static_cast<float*>(dvalue), static_cast<float*>(dloc), static_cast<float*>(dattw),
-      S, Lq, M, D, L, P, lv);
-  return (int)cudaGetLastError();
+  if (start != S) return bad;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* v = static_cast<const float*>(value);
+  const float* lc = static_cast<const float*>(loc);
+  const float* a = static_cast<const float*>(attw);
+  const float* g = static_cast<const float*>(grad);
+  float* dv = static_cast<float*>(dvalue);
+  float* dl = static_cast<float*>(dloc);
+  float* da = static_cast<float*>(dattw);
+  if (kernel == 0) {
+    if (threads != kGlobalWarps * 32 || (int64_t)grid_x * kGlobalWarps < (int64_t)Lq * M ||
+        smem != 0)
+      return bad;
+    ms_deform_attn_bwd_global<<<dim3(grid_x, B), threads, 0, s>>>(v, lc, a, g, dv, dl, da, S, Lq,
+                                                                 M, D, L, P, lv);
+    return (int)cudaGetLastError();
+  }
+  // shared memory: the value and dvalue slices, and each warp's grad rows
+  if (kernel != 1 || grid_x != M * L ||
+      ((int64_t)2 * largest + (int64_t)threads / 32 * (32 / P)) * D * 4 != smem)
+    return bad;
+#define LAUNCH_LEVEL(warps) \
+  launch_level<warps>(v, lc, a, g, dv, dl, da, B, S, Lq, M, D, L, P, lv, largest, grid_x, smem, s)
+  switch (threads) {
+    case 256: return LAUNCH_LEVEL(8);
+    case 512: return LAUNCH_LEVEL(16);
+    case 768: return LAUNCH_LEVEL(24);
+    case 1024: return LAUNCH_LEVEL(32);
+    default: return bad;
+  }
+#undef LAUNCH_LEVEL
 }

@@ -5,8 +5,10 @@ frozen VGGish audio embedding, two ResNet towers (visual and the Siam-Encoder
 over the Maskige) joined by per-stage SE gates, and the MaskFormer head with
 late MHA-B fusion. Keeps the JAX package's layouts at the public surface:
 `forward(images [B, T, H, W, 3], audio_log_mel [B, T, 96, 64], pre_masks
-[B, T, H, W, 3])` -> `pred_logits [B*T, Q, C+1]`, `pred_masks [B*T, Q, H/4,
-W/4]` and the per-layer `aux_outputs`. Internally everything is NCHW.
+[B, T, H, W, 3], vid_temporal_mask [B, T])` -> `pred_logits [B*T, Q, C+1]`,
+`pred_masks [B*T, Q, H/4, W/4]` and the per-layer `aux_outputs`. Internally
+everything is NCHW. A `vid_temporal_mask` gates each frame's audio feature, as
+the JAX model does: a frame whose flag is 0 gets a zero audio feature.
 
 `state_dict()` keys are the reference `.pth` names that
 `combo_avs_tpu/train/checkpoint.py::convert_combo_checkpoint` reads.
@@ -102,6 +104,7 @@ class MaskFormer(nn.Module):
         images: torch.Tensor,  # [B, T, H, W, 3] raw RGB (0-255)
         audio_log_mel: torch.Tensor,  # [B, T, 96, 64]
         pre_masks: torch.Tensor,  # [B, T, H, W, 3] Maskige RGB
+        vid_temporal_mask: Optional[torch.Tensor] = None,  # [B, T] 0/1 per frame
         dropout_generator: Optional[torch.Generator] = None,
     ) -> Dict[str, object]:
         B, T, H, W, _ = images.shape
@@ -109,6 +112,9 @@ class MaskFormer(nn.Module):
         # the audio tower is frozen; [B*T, 1, 128]
         with torch.no_grad():
             audio_feature = self.audio_backbone(audio_log_mel.reshape(B * T, 1, 96, 64))[:, None, :]
+        if vid_temporal_mask is not None:
+            audio_feature = audio_feature * vid_temporal_mask.reshape(B * T, 1, 1).to(
+                audio_feature.dtype)
 
         features = self.backbone(frames)
         pre_feats = self.pre_sam_backbone(self._normalize(pre_masks.reshape(B * T, H, W, 3)))

@@ -8,6 +8,11 @@ backward launches `csrc/ms_deform_attn_bwd.cu` (or raise); a CPU tensor takes
 the plain version `ops.deform_attn.ms_deform_attn_plain`, differentiated by
 autograd. There is no fallback from one to the other.
 
+The backward has two kernels, "level_slice" (dvalue summed per (frame,
+head, level) in shared memory) and "global" (global atomics); `bwd_launch_plan`,
+a pure function of the shapes and the card's opt-in shared-memory limit,
+picks one before the launch, and the C function only executes it.
+
 `launches` and `bwd_launches` count the two kernels' launches in this
 process: each is incremented where its kernel is launched and nowhere else,
 so a caller can reset them, run the model, and see that the path went
@@ -17,7 +22,8 @@ through the kernels.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+import functools
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -30,6 +36,13 @@ MAX_LEVELS = 4
 
 launches = 0
 bwd_launches = 0
+
+# the backward's launch plans (csrc/ms_deform_attn_bwd.cu executes them)
+GLOBAL_THREADS = 256  # the global kernel: 8 warps, one (q, m) pair each
+# the level-slice kernel: 24 warps, a lane per sampling point (8 and 16 are
+# slower; 32 do not fit beside the grad rows at the training shape:
+# scripts/bench_deform_bwd_plans.py)
+LEVEL_SLICE_THREADS = 768
 
 
 def _fwd_kernel():
@@ -44,10 +57,72 @@ def _fwd_kernel():
 def _bwd_kernel():
     fn = _build.load(BWD_SOURCE).ms_deform_attn_bwd
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
-                       + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def smem_optin(device_index: int) -> int:
+    """The largest dynamic shared memory a block may opt in to on the card
+    (232,448 bytes on an H100)."""
+    return torch.cuda.get_device_properties(device_index).shared_memory_per_block_optin
+
+
+class BwdLaunchPlan(NamedTuple):
+    """How `csrc/ms_deform_attn_bwd.cu` computes K2.
+
+    kernel: "level_slice" (one block per (frame, head, level) stages the
+        level's value rows and sums its dvalue rows in dynamic shared
+        memory, and stores them once) or "global" (one warp per (frame,
+        query, head) adds into a zeroed dvalue with global atomics);
+    threads: threads per block;
+    blocks_per_frame: the grid's x extent; the grid has one row per frame;
+    smem_bytes: dynamic shared memory per block (`level_slice_bytes`; 0 for
+        "global")."""
+
+    kernel: str
+    threads: int
+    blocks_per_frame: int
+    smem_bytes: int
+
+
+def level_slice_bytes(rows: int, D: int, P: int, threads: int = LEVEL_SLICE_THREADS) -> int:
+    """The level-slice kernel's shared memory for a largest level of `rows`
+    positions: its value and dvalue rows ([rows, D] float32 each) and each
+    warp's grad rows (32 // P queries of D floats)."""
+    return (2 * rows + threads // 32 * (32 // P)) * D * 4
+
+
+def bwd_launch_plan(levels: Sequence[Tuple[int, int]], Lq: int, M: int, D: int, P: int,
+                    smem_optin: int) -> BwdLaunchPlan:
+    """The backward's launch plan, a pure function of the level shapes, the
+    query count, heads, channels, points per level and the card's opt-in
+    shared-memory limit per block: "level_slice" when its shared memory for
+    the largest level fits that limit, else "global"."""
+    smem = level_slice_bytes(max(h * w for h, w in levels), D, P)
+    if smem <= smem_optin:
+        return BwdLaunchPlan("level_slice", LEVEL_SLICE_THREADS, M * len(levels), smem)
+    warps = GLOBAL_THREADS // 32
+    return BwdLaunchPlan("global", GLOBAL_THREADS, -(-(Lq * M) // warps), 0)
+
+
+def plan_args(B: int, S: int, Lq: int, M: int, D: int, P: int,
+              levels: Sequence[Tuple[int, int]], plan: BwdLaunchPlan):
+    """The C function's int array: B, S, Lq, M, D, L, P, the plan's kernel
+    (0 global, 1 level_slice), threads, blocks per frame and shared-memory
+    bytes, then (H_l, W_l) per level."""
+    return (ctypes.c_int * (11 + 2 * len(levels)))(
+        B, S, Lq, M, D, len(levels), P, int(plan.kernel == "level_slice"), plan.threads,
+        plan.blocks_per_frame, plan.smem_bytes, *[n for hw in levels for n in hw])
+
+
+@functools.lru_cache(maxsize=1024)
+def _chosen_plan(B: int, S: int, Lq: int, M: int, D: int, P: int,
+                 levels: Tuple[Tuple[int, int], ...], optin: int):
+    """bwd_launch_plan's choice and its int array, made once per shape."""
+    plan = bwd_launch_plan(levels, Lq, M, D, P, optin)
+    return plan, plan_args(B, S, Lq, M, D, P, levels, plan)
 
 
 def _check(value, spatial_shapes, sampling_locations, attention_weights, name):
@@ -117,10 +192,12 @@ def ms_deform_attn_cuda(
 
 
 def ms_deform_attn_bwd_cuda(value, spatial_shapes, sampling_locations, attention_weights,
-                            grad_out):
+                            grad_out, plan: Optional[BwdLaunchPlan] = None):
     """Launch K2: the gradients (dvalue, dlocations, dweights) of K1's output
     against `grad_out` [B, Lq, M * D], in the inputs' dtypes. fp32 value only
-    (the bf16 training regime, AMP, is not ported yet)."""
+    (the bf16 training regime, AMP, is not ported yet). `plan` is
+    `bwd_launch_plan`'s choice unless the caller names another (to check or
+    time it); a launch that fails raises, whatever the plan."""
     global bwd_launches
     shapes = _check(value, spatial_shapes, sampling_locations, attention_weights,
                     "ms_deform_attn_bwd_cuda")
@@ -132,21 +209,31 @@ def ms_deform_attn_bwd_cuda(value, spatial_shapes, sampling_locations, attention
     if tuple(grad_out.shape) != (B, Lq, M * D) or grad_out.device != value.device:
         raise ValueError(f"ms_deform_attn_bwd_cuda: grad_out {tuple(grad_out.shape)} on "
                          f"{grad_out.device}, expected {(B, Lq, M * D)} on {value.device}")
+    if B > 65535:
+        raise ValueError(f"ms_deform_attn_bwd_cuda: {B} frames, more than the grid's 65535 rows")
     loc = sampling_locations.detach().to(torch.float32).contiguous()
     attw = attention_weights.detach().to(torch.float32).contiguous()
     g = grad_out.detach().to(torch.float32).contiguous()
-    dvalue = torch.zeros_like(value, dtype=torch.float32)
     dloc = torch.empty_like(loc)
     dattw = torch.empty_like(attw)
-    if g.numel() and dvalue.numel():
+    if g.numel() and value.numel():
+        if plan is None:
+            plan, args = _chosen_plan(B, S, Lq, M, D, P, tuple(shapes),
+                                      smem_optin(value.device.index))
+        else:
+            args = plan_args(B, S, Lq, M, D, P, shapes, plan)
+        # the level-slice kernel writes every element; the global one adds
+        dvalue = (torch.empty_like if plan.kernel == "level_slice" else torch.zeros_like)(
+            value, dtype=torch.float32)
         stream = torch.cuda.current_stream(value.device).cuda_stream
         err = _bwd_kernel()(value.data_ptr(), loc.data_ptr(), attw.data_ptr(), g.data_ptr(),
-                            dvalue.data_ptr(), dloc.data_ptr(), dattw.data_ptr(),
-                            B, S, Lq, M, D, L, P, _levels(shapes), stream)
+                            dvalue.data_ptr(), dloc.data_ptr(), dattw.data_ptr(), args, stream)
         if err != 0:
-            raise RuntimeError(f"ms_deform_attn_bwd launch failed: CUDA error {err}")
+            raise RuntimeError(f"ms_deform_attn_bwd ({plan.kernel}) launch failed: "
+                               f"CUDA error {err}")
         bwd_launches += 1
     else:
+        dvalue = torch.zeros_like(value, dtype=torch.float32)
         dloc.zero_()
         dattw.zero_()
     return (dvalue, dloc.to(sampling_locations.dtype),

@@ -21,12 +21,15 @@ from combo_avs_torch.models.meta_arch import semantic_inference
 from combo_avs_torch.train.optim import Optimizer
 
 
-def _model_inputs(batch: Dict, dtype: torch.dtype, device: torch.device) -> Tuple[torch.Tensor, ...]:
-    """(images, audio_log_mel, pre_masks) moved to `device` and cast to the
-    compute type there (the loader ships uint8 frames and Maskiges, which
-    bf16 holds exactly)."""
-
-    return tuple(_to(batch[k], device, dtype) for k in ("images", "audio_log_mel", "pre_masks"))
+def _model_inputs(batch: Dict, dtype: torch.dtype,
+                  device: torch.device) -> Tuple[Optional[torch.Tensor], ...]:
+    """(images, audio_log_mel, pre_masks, vid_temporal_mask) moved to
+    `device` and cast to the compute type there (the loader ships uint8
+    frames and Maskiges, which bf16 holds exactly); the flag is None when
+    the batch has none."""
+    vid = batch.get("vid_temporal_mask")
+    return (*(_to(batch[k], device, dtype) for k in ("images", "audio_log_mel", "pre_masks")),
+            None if vid is None else _to(vid, device, dtype))
 
 
 def _to(x, device: torch.device, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
@@ -53,12 +56,13 @@ def compute_losses(model: torch.nn.Module, criterion: SetCriterion, batch: Dict,
                    draws: Optional[Sequence[Draws]] = None) -> Dict[str, torch.Tensor]:
     """The training forward: model outputs on the batch, then every named
     loss. `gt_temporal_mask` [B, T] becomes the per-frame weight (S4: the
-    first frame of each video). Dropout (in training mode) and the
+    first frame of each video); `vid_temporal_mask` [B, T], when the batch
+    has one, gates each frame's audio feature. Dropout (in training mode) and the
     criterion's draws come from `generator`, in that order, unless `draws`
     are given. The model's mode is the caller's."""
     param = next(model.parameters())
-    images, mel, pre = _model_inputs(batch, param.dtype, param.device)
-    outputs = model(images, mel, pre, dropout_generator=generator)
+    outputs = model(*_model_inputs(batch, param.dtype, param.device),
+                    dropout_generator=generator)
     targets = _flatten_targets(batch, param.device)
     fw = batch.get("gt_temporal_mask")
     fw = None if fw is None else _to(fw, param.device, torch.float32).reshape(-1)
@@ -73,7 +77,7 @@ def make_train_step(model: torch.nn.Module, criterion: SetCriterion,
     training mode, losses, backward, clipped AdamW update) on a loader-format
     batch (uint8 `images` and `pre_masks` [B, T, H, W, 3], `audio_log_mel`,
     `labels` [B, T, K], bool `masks` [B, T, K, H, W], `valid` [B, T, K],
-    `gt_temporal_mask` [B, T]). The metrics are `total_loss` and every named
+    `gt_temporal_mask` [B, T], optionally `vid_temporal_mask` [B, T]). The metrics are `total_loss` and every named
     loss, as 0-dim tensors on the model's device (reading them synchronizes).
     `generator` (on the model's device) drives dropout and the criterion's
     draws. amp=True, the AVSS bf16 regime, is not ported yet."""
@@ -104,8 +108,8 @@ def _tensors(module: torch.nn.Module):
 def make_eval_step(model: torch.nn.Module, out_size: Tuple[int, int],
                    bf16: bool = False) -> Callable[[Dict], torch.Tensor]:
     """Returns `step(batch) -> [B*T, C, H, W]` float32 semantic maps at
-    `out_size`, weighted per frame by the batch's `vid_temporal_mask` [B, T]
-    when it has one.
+    `out_size`. The batch's `vid_temporal_mask` [B, T], when it has one,
+    gates each frame's audio feature in the model and weights its map.
 
     bf16=True runs the whole forward in bfloat16: parameters, frozen buffers
     and inputs (the deformable-attention kernel still accumulates in fp32).
@@ -134,11 +138,12 @@ def make_eval_step(model: torch.nn.Module, out_size: Tuple[int, int],
         net.eval()
         try:
             with torch.inference_mode():
-                outputs = net(*_model_inputs(batch, dtype, device))
-                vid = batch.get("vid_temporal_mask")
+                inputs = _model_inputs(batch, dtype, device)
+                outputs = net(*inputs)
+                vid = inputs[3]
                 return semantic_inference(
                     outputs["pred_logits"], outputs["pred_masks"], out_size=out_size,
-                    temporal_mask=None if vid is None else _to(vid, device).reshape(-1))
+                    temporal_mask=None if vid is None else vid.reshape(-1))
         finally:
             net.train(was_training)
 

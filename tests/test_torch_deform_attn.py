@@ -170,3 +170,37 @@ def test_cpu_dispatch_gradcheck_fp64():
     assert torch.autograd.gradcheck(
         lambda v, l, w: deform_attn_cuda.ms_deform_attn(v, shapes, l, w), (value, loc, wts),
         eps=1e-7, atol=1e-6)
+
+
+H100_OPTIN = 232448  # an H100's opt-in shared memory per block (227 KB)
+MAIN_LEVELS = ((7, 7), (14, 14), (28, 28))  # the main path's levels at 224^2
+# name: (levels, Lq, M, D, P, opt-in bytes) -> (kernel, threads, blocks per frame, smem bytes);
+# the level-slice kernel's shared memory at D = 32, P = 4 and 24 warps is
+# (2 rows + 24 x 8) x 128 bytes: 812 rows fit 232,448 bytes, 813 do not
+BWD_PLANS = {
+    "train": ((MAIN_LEVELS, 1029, 8, 32, 4, H100_OPTIN), ("level_slice", 768, 24, 225280)),
+    "one_row_over": ((((7, 7), (3, 271)), 862, 8, 32, 4, H100_OPTIN),
+                     ("global", 256, 862, 0)),
+    "at_limit": ((((28, 29), (7, 7)), 861, 8, 32, 4, H100_OPTIN),
+                 ("level_slice", 768, 16, 232448)),
+    "ragged": ((((3, 5), (6, 10)), 37, 3, 16, 4, H100_OPTIN), ("level_slice", 768, 6, 19968)),
+    "d16_m3": ((MAIN_LEVELS, 1029, 3, 16, 4, H100_OPTIN), ("level_slice", 768, 9, 112640)),
+    "p3": ((MAIN_LEVELS, 1029, 8, 32, 3, H100_OPTIN), ("level_slice", 768, 24, 231424)),
+    "no_optin": ((MAIN_LEVELS, 1029, 8, 32, 4, 48 * 1024), ("global", 256, 1029, 0)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BWD_PLANS))
+def test_bwd_launch_plan(case):
+    """K2's launch plan is a pure function of the shapes and the card's
+    opt-in limit: the level-slice kernel exactly when its shared memory for
+    the largest level (value and dvalue rows, each warp's grad rows) fits
+    it, else the global one; and the C function's int array carries the
+    plan and the level shapes."""
+    (levels, lq, m, d, p, optin), want = BWD_PLANS[case]
+    plan = deform_attn_cuda.bwd_launch_plan(levels, lq, m, d, p, optin)
+    assert tuple(plan) == want
+    s = sum(h * w for h, w in levels)
+    args = deform_attn_cuda.plan_args(3, s, lq, m, d, p, levels, plan)
+    assert list(args) == [3, s, lq, m, d, len(levels), p, int(want[0] == "level_slice"),
+                          *want[1:], *[n for hw in levels for n in hw]]

@@ -10,6 +10,9 @@ with only torch. Skip tests/conftest.py, which configures jax:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_k234_card.py
 """
 
+import contextlib
+from unittest import mock
+
 import pytest
 import torch
 
@@ -65,18 +68,27 @@ def _plain_grads(fn, inputs, g):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("plan", ["level_slice", "global"])
 @pytest.mark.parametrize("case", sorted(DEFORM))
-def test_k2_matches_plain_autograd(cuda_device, case):
+def test_k2_matches_plain_autograd(cuda_device, case, plan):
     """dvalue, dlocations and dweights through the autograd Function (K1
-    forward, K2 backward) against autograd of the plain version."""
+    forward, K2 backward) against autograd of the plain version, under each
+    of K2's launch plans: the level-slice kernel, which bwd_launch_plan
+    picks for these shapes, and the global one, which it picks on a card
+    that offers no opt-in shared memory (an opt-in limit of 0)."""
     c = DEFORM[case]
+    assert deform_attn_cuda.bwd_launch_plan(c["levels"], c["lq"], c["m"], c["d"], 4,
+                                            deform_attn_cuda.smem_optin(0)).kernel == "level_slice"
     value, loc, w = k1_inputs(c["b"], c["m"], c["d"], 4, c["levels"], c["lq"], torch.float32,
                               cuda_device, seed=5)
     g = torch.randn((c["b"], c["lq"], c["m"] * c["d"]), device=cuda_device)
     before = (deform_attn_cuda.launches, deform_attn_cuda.bwd_launches)
     leaves = [t.clone().requires_grad_() for t in (value, loc, w)]
-    out = deform_attn_cuda.ms_deform_attn(leaves[0], c["levels"], leaves[1], leaves[2])
-    got = torch.autograd.grad(out, leaves, g)
+    optin = (contextlib.nullcontext() if plan == "level_slice"
+             else mock.patch.object(deform_attn_cuda, "smem_optin", lambda index: 0))
+    with optin:
+        out = deform_attn_cuda.ms_deform_attn(leaves[0], c["levels"], leaves[1], leaves[2])
+        got = torch.autograd.grad(out, leaves, g)
     assert (deform_attn_cuda.launches, deform_attn_cuda.bwd_launches) == (before[0] + 1,
                                                                           before[1] + 1)
     want = _plain_grads(lambda v, l, a: ms_deform_attn_plain(v, c["levels"], l, a),

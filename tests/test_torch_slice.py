@@ -116,28 +116,38 @@ def _x64(tree):
     return jax.tree.map(lambda x: np.asarray(x, np.float64), tree)
 
 
-@pytest.mark.parametrize("mode", ["fp64", "fp32", "bf16"])
+@pytest.mark.parametrize("mode", ["fp64", "fp64_zero_flag", "fp32", "bf16"])
 def test_tiny_slice_matches_jax(tiny, mode):
     """fp64: the same function to rounding; the semantic maps are float32 on
-    both sides, so 1e-6. fp32: another summation order through two ResNet
-    towers, the encoder and the decoder: atol 5e-3, rtol 1e-3 (as
-    tests/test_e2e_parity.py). bf16: the port's bf16 step against the JAX bf16
-    step; the two frameworks round at other places, so the bf16 eval tolerance
-    of tests/test_bf16_eval.py (0.05) applies."""
+    both sides, so 1e-6. fp64_zero_flag: the raw outputs in fp64 with the
+    audio gate closed on the last frame (`vid_temporal_mask` 0 there), 1e-6.
+    fp32: another summation order through two ResNet towers, the encoder and
+    the decoder: atol 5e-3, rtol 1e-3 (as tests/test_e2e_parity.py). bf16:
+    the port's bf16 step against the JAX bf16 step; the two frameworks round
+    at other places, so the bf16 eval tolerance of tests/test_bf16_eval.py
+    (0.05) applies."""
     jm, port, variables = tiny
     batch = _batch(1)
     size = (S, S)
-    if mode == "fp64":
+    got = want = raw = None
+    if mode.startswith("fp64"):
         net = MaskFormer(**_port_kwargs(jm), device="cpu")
         net.load_state_dict(port.state_dict())
         net = net.double().eval()
+        inputs = [_x64(batch[k]) for k in ("images", "audio_log_mel", "pre_masks")]
+        if mode == "fp64_zero_flag":
+            flag = np.ones((B, T), np.float64)
+            flag[:, -1] = 0.0
+            inputs.append(flag)
         with jax.enable_x64(True):
             v64 = _x64(variables)
-            want = np.asarray(jax_make_eval_step(jm, size)(v64["params"], v64["frozen"], batch))
-            raw = jax.jit(jm.apply)(v64, *(_x64(batch[k]) for k in ("images", "audio_log_mel", "pre_masks")))
-            raw = jax.tree.map(np.asarray, raw)
-        got = make_eval_step(net, size)(batch)
-        inputs = [torch.from_numpy(_x64(batch[k])) for k in ("images", "audio_log_mel", "pre_masks")]
+            if mode == "fp64":
+                want = np.asarray(jax_make_eval_step(jm, size)(v64["params"], v64["frozen"],
+                                                               batch))
+            raw = jax.tree.map(np.asarray, jax.jit(jm.apply)(v64, *inputs))
+        if mode == "fp64":
+            got = make_eval_step(net, size)(batch)
+        inputs = [torch.from_numpy(a) for a in inputs]
         tol = dict(atol=1e-6, rtol=1e-6)
     else:
         net = port
@@ -146,15 +156,15 @@ def test_tiny_slice_matches_jax(tiny, mode):
             variables["params"], variables["frozen"], batch))
         got = make_eval_step(net, size, bf16=bf16)(batch)
         tol = dict(atol=5e-2, rtol=0) if mode == "bf16" else dict(atol=5e-3, rtol=1e-3)
-        raw = None
         if mode == "fp32":
             f32 = [batch[k].astype(np.float32) for k in ("images", "audio_log_mel", "pre_masks")]
             raw = jax.tree.map(np.asarray, jax.jit(jm.apply)(variables, *f32))
             inputs = [torch.from_numpy(a) for a in f32]
 
-    assert got.dtype == torch.float32 and tuple(got.shape) == (B * T, 2, S, S)
-    assert bool(torch.isfinite(got).all()) and float(got.min()) >= 0
-    np.testing.assert_allclose(got.numpy(), want, **tol)
+    if got is not None:
+        assert got.dtype == torch.float32 and tuple(got.shape) == (B * T, 2, S, S)
+        assert bool(torch.isfinite(got).all()) and float(got.min()) >= 0
+        np.testing.assert_allclose(got.numpy(), want, **tol)
     if raw is not None:
         with torch.no_grad():
             out = net(*inputs)
