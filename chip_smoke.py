@@ -16,7 +16,8 @@ non-zero and never prints its last line:
      time included, as the eager main path pays it) and host us per call;
      the plain version's call ms; and the least time the card could take
      (bound):
-       K1 deformable-attention forward (fp32 and bf16 value),
+       K1 deformable-attention forward under both launch plans (staged, the
+       plan's choice, and global; fp32 and bf16 value; eval and training shapes),
        K2 its backward under both launch plans (level_slice, the plan's
        choice, and global; also a level one row over the opt-in limit),
        K3/K5 the point-sample forward, K4 its backward,
@@ -378,36 +379,63 @@ def compare(tag: str, got: torch.Tensor, want: torch.Tensor, tol: float) -> dict
 
 
 def phase_k1(dev: torch.device) -> dict:
+    """K1 against the plain version under both launch plans: the plan's own
+    choice (staged where the (frame, head) value slice fits the card's
+    opt-in shared memory, its query chunk made for the frame count and the
+    card's SMs) through the wrapper, and the other plan forced (global: the
+    plan at an opt-in limit of 0), at
+    the eval shape (20 frames), the training shape (40) and a ragged shape,
+    fp32 and bf16. Both plans are timed at the eval and training shapes,
+    the plain version beside the chosen one."""
     from combo_avs_torch.ops import deform_attn_cuda as k1
     from combo_avs_torch.ops.deform_attn import ms_deform_attn_plain
 
+    optin, sms = k1.smem_optin(dev.index), k1.sm_count(dev.index)
     Lq = sum(h * w for h, w in K1_LEVELS)  # encoder queries = all tokens
-    result = {}
-    cases = [
+    train = dict(K1_SHAPE, B=TRAIN_N)
+    # ragged: D=16 (half a warp of lanes), Lq*M not a multiple of the block
+    ragged_levels, ragged = ((3, 5), (6, 10)), dict(B=3, M=3, D=16, P=4)
+    result = {"smem_optin": optin}
+    cases = [  # name, value dtype, levels, shape, queries, tolerance
         ("fp32", torch.float32, K1_LEVELS, K1_SHAPE, Lq, K1_TOL_FP32),
         ("bf16", torch.bfloat16, K1_LEVELS, K1_SHAPE, Lq, K1_TOL_BF16),
-        # ragged: D=16 (half a warp of lanes), Lq*M not a multiple of the block
-        ("ragged_fp32", torch.float32, ((3, 5), (6, 10)), dict(B=3, M=3, D=16, P=4),
-         37, K1_TOL_FP32),
-        ("ragged_bf16", torch.bfloat16, ((3, 5), (6, 10)), dict(B=3, M=3, D=16, P=4),
-         37, K1_TOL_BF16),
+        ("train_fp32", torch.float32, K1_LEVELS, train, Lq, K1_TOL_FP32),
+        ("train_bf16", torch.bfloat16, K1_LEVELS, train, Lq, K1_TOL_BF16),
+        ("ragged_fp32", torch.float32, ragged_levels, ragged, 37, K1_TOL_FP32),
+        ("ragged_bf16", torch.bfloat16, ragged_levels, ragged, 37, K1_TOL_BF16),
     ]
     with torch.inference_mode():
         for name, dtype, levels, shp, lq, tol in cases:
             value, loc, w = k1_inputs(shp["B"], shp["M"], shp["D"], shp["P"], levels, lq,
                                       dtype, dev, seed=len(name))
-            got = k1.ms_deform_attn_cuda(value, levels, loc, w)
             want = ms_deform_attn_plain(value, levels, loc, w)
-            err = compare(f"[k1] {name}", got, want, tol)
-            if levels == K1_LEVELS:
-                t = timings(lambda: k1.ms_deform_attn_cuda(value, levels, loc, w),
-                            plain=lambda: ms_deform_attn_plain(value, levels, loc, w))
+            plan_at = lambda limit: k1.fwd_launch_plan(  # noqa: E731
+                levels, shp["B"], lq, shp["M"], shp["D"], shp["P"], value.element_size(), limit,
+                sms)
+            chosen = plan_at(optin)
+            # a staged plan at an unbounded limit raises at launch if it does not fit
+            other = plan_at(0 if chosen.kernel == "staged" else 2**31)
+            row = {"chosen": chosen.kernel, "plans": {}}
+            # the chosen plan runs as the wrapper picks it; the other is forced
+            for plan, forced in ((chosen, None), (other, other)):
+                fn = lambda: k1.ms_deform_attn_cuda(value, levels, loc, w, plan=forced)  # noqa: E731
+                err = compare(f"[k1] {name} ({plan.kernel}, levels {levels})", fn(), want, tol)
+                if levels != K1_LEVELS:
+                    continue
+                t = timings(fn, plain=(lambda: ms_deform_attn_plain(value, levels, loc, w))
+                            if plan is chosen else None)
                 # one FMA per in-level corner and channel
-                bd = bound(nbytes(value, loc, w, got),
-                           2 * shp["D"] * deform_corners(levels, loc))
-                log(f"[k1] {name}: {describe(t)}; bound {bd['bound_ms']:.4f} ms by "
-                    f"{bd['bound_by']}")
-                result[name] = dict(err, **t, **bd)
+                bd = bound(nbytes(value, loc, w, want), 2 * shp["D"] * deform_corners(levels, loc))
+                log(f"[k1] {name} [{shp['B']},{lq},{shp['M']},{shp['D']}]: {plan.kernel} plan "
+                    f"{plan}: {describe(t)}; bound {bd['bound_ms']:.4f} ms by {bd['bound_by']} "
+                    f"({bd['bound_ms'] / t['ms']:.0%} of it)")
+                row["plans"][plan.kernel] = dict(err, plan=plan._asdict(), **t, **bd)
+            if levels == K1_LEVELS:
+                ms = {kn: v["ms"] for kn, v in row["plans"].items()}
+                log(f"[k1] {name}, device ms: " + ", ".join(f"{kn} {v:.4f}" for kn, v in ms.items())
+                    + f" (chosen: {chosen.kernel}); the card's opt-in limit {optin} bytes "
+                    "per block")
+                result[name] = dict(row["plans"][chosen.kernel], **row)
     return result
 
 
@@ -706,6 +734,7 @@ def reset_counts():
     from combo_avs_torch.ops import deform_attn_cuda, gather_cuda, point_sample_cuda, seminf_cuda
 
     deform_attn_cuda.launches = deform_attn_cuda.bwd_launches = 0
+    deform_attn_cuda.fwd_plan_launches.update(dict.fromkeys(deform_attn_cuda.fwd_plan_launches, 0))
     point_sample_cuda.fwd_launches = point_sample_cuda.dimg_launches = 0
     point_sample_cuda.dxy_launches = 0
     gather_cuda.launches = seminf_cuda.launches = 0
@@ -721,9 +750,12 @@ def read_counts() -> dict:
 
 
 def phase_slice(model, smi: str) -> dict:
+    from combo_avs_torch.ops import deform_attn_cuda
     from combo_avs_torch.train.train_step import make_eval_step
 
     dev = next(model.parameters()).device
+    Lq = sum(h * w for h, w in K1_LEVELS)
+    optin = deform_attn_cuda.smem_optin(dev.index)
     rng = np.random.RandomState(SEED)
     batches = [_batch(rng, dev) for _ in range(NUM_BATCHES)]
     steps = {name: make_eval_step(model, out_size=(SIZE, SIZE), bf16=(name == "bf16"))
@@ -733,10 +765,10 @@ def phase_slice(model, smi: str) -> dict:
     torch.cuda.synchronize()
 
     reset_counts()
-    fps = {}
-    k1_total = 0
+    fps, k1_plans = {}, {}
     for name, step in steps.items():
         before = read_counts()
+        plans_before = dict(deform_attn_cuda.fwd_plan_launches)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         outs = [step(b) for b in batches]
@@ -744,7 +776,15 @@ def phase_slice(model, smi: str) -> dict:
         dt = time.perf_counter() - t0
         after = read_counts()
         n = after["k1"] - before["k1"]
-        k1_total += n
+        k1_plans[name] = {kn: c - plans_before[kn]
+                          for kn, c in deform_attn_cuda.fwd_plan_launches.items()}
+        # every K1 launch of the slice takes the plan fwd_launch_plan picks for its shape
+        chosen = deform_attn_cuda.fwd_launch_plan(
+            K1_LEVELS, B * T, Lq, K1_SHAPE["M"], K1_SHAPE["D"], K1_SHAPE["P"],
+            2 if name == "bf16" else 4, optin, deform_attn_cuda.sm_count(dev.index)).kernel
+        if k1_plans[name][chosen] != n:
+            raise AssertionError(f"[slice] {name}: K1 launches by plan {k1_plans[name]}, "
+                                 f"expected all {n} through {chosen}")
         for o in outs:
             if tuple(o.shape) != (B * T, 2, SIZE, SIZE) or o.dtype != torch.float32:
                 raise AssertionError(f"[slice] {name}: output {tuple(o.shape)} {o.dtype}")
@@ -758,10 +798,11 @@ def phase_slice(model, smi: str) -> dict:
         fps[name] = NUM_BATCHES * B * T / dt
         log(f"[slice] {name}: {NUM_BATCHES} x [{B}x{T}x{SIZE}^2] -> {tuple(outs[0].shape)} "
             f"range [{float(outs[0].min()):.4f}, {float(outs[0].max()):.4f}], "
-            f"K1 launches {n}, K7 {after['k7'] - before['k7']}, {fps[name]:.1f} frames/s on {smi} "
+            f"K1 launches {n} (by plan {k1_plans[name]}), K7 {after['k7'] - before['k7']}, "
+            f"{fps[name]:.1f} frames/s on {smi} "
             f"(TF32 matmul {torch.backends.cuda.matmul.allow_tf32}, "
             f"cuDNN {torch.backends.cudnn.allow_tf32})")
-    return {"launches": read_counts(), "fps": fps}
+    return {"launches": read_counts(), "fps": fps, "k1_plans": k1_plans}
 
 
 def phase_eval_entry(model, smi: str) -> dict:
@@ -1178,9 +1219,14 @@ def main(argv=None) -> int:
         kernel_entry("ms_deform_attn_fwd", "combo_avs_torch/csrc/ms_deform_attn_fwd.cu",
                      REPLACES["k1"], {"eval": ev["k1"], "eval_entry": entry["k1"],
                                        "train": tl["k1"], "train_fallback": fb["k1"]}, k1["fp32"],
-                     shape="value [20,1029,8,32] fp32", max_abs_err_bf16=k1["bf16"]["max_abs_err"],
+                     shape="value [20,1029,8,32] fp32", plan=k1["fp32"]["chosen"],
+                     eval_launches_by_plan=sl["k1_plans"],
+                     max_abs_err_bf16=k1["bf16"]["max_abs_err"],
                      ms_bf16=k1["bf16"]["ms"], call_ms_bf16=k1["bf16"]["call_ms"],
-                     plain_ms_bf16=k1["bf16"]["plain_ms"], bound_ms_bf16=k1["bf16"]["bound_ms"]),
+                     plain_ms_bf16=k1["bf16"]["plain_ms"], bound_ms_bf16=k1["bf16"]["bound_ms"],
+                     ms_train=k1["train_fp32"]["ms"], bound_ms_train=k1["train_fp32"]["bound_ms"],
+                     plans_ms={name: {kn: v["ms"] for kn, v in k1[name]["plans"].items()}
+                               for name in ("fp32", "bf16", "train_fp32", "train_bf16")}),
         kernel_entry("ms_deform_attn_bwd", "combo_avs_torch/csrc/ms_deform_attn_bwd.cu",
                      REPLACES["k2"], {"eval": ev["k2"], "train": tl["k2"],
                                        "train_fallback": fb["k2"]},

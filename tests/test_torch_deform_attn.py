@@ -204,3 +204,105 @@ def test_bwd_launch_plan(case):
     args = deform_attn_cuda.plan_args(3, s, lq, m, d, p, levels, plan)
     assert list(args) == [3, s, lq, m, d, len(levels), p, int(want[0] == "level_slice"),
                           *want[1:], *[n for hw in levels for n in hw]]
+
+
+H100_SMS = 132  # an H100 SXM's streaming multiprocessors
+# name: (levels, frames, Lq, M, D, P, element size, opt-in bytes) -> (kernel, threads, chunk,
+# blocks per frame, smem bytes), on 132 SMs. The staged kernel's shared memory is the (frame,
+# head) slice, S x D elements rounded up to 16 bytes, plus each of its 32 warps' corner table,
+# 32 B a point for each of 32 / lanes queries (lanes: D / 4 when D % 4 == 0, else D / 2 bf16
+# pairs or D, rounded up to a power of two). Its query chunks per (frame, head) are the fewest
+# whose frames x M x chunks blocks fill their waves of 132 to 90%, at most 8, else the best
+# filled: 3 at 20 frames x 8 heads (480 of 528), 2 at 40 (640 of 660)
+FWD_PLANS = {
+    "eval_fp32": ((MAIN_LEVELS, 20, 1029, 8, 32, 4, 4, H100_OPTIN),
+                  ("staged", 1024, 343, 24, 1029 * 32 * 4 + 32 * 4 * 12 * 32)),  # 180,864
+    "eval_bf16": ((MAIN_LEVELS, 20, 1029, 8, 32, 4, 2, H100_OPTIN),
+                  ("staged", 1024, 343, 24, 1029 * 32 * 2 + 32 * 4 * 12 * 32)),  # 115,008
+    "train_fp32": ((MAIN_LEVELS, 40, 1029, 8, 32, 4, 4, H100_OPTIN),
+                   ("staged", 1024, 515, 16, 180864)),
+    "train_bf16": ((MAIN_LEVELS, 40, 1029, 8, 32, 4, 2, H100_OPTIN),
+                   ("staged", 1024, 515, 16, 115008)),
+    # one frame: 8 chunks, 64 blocks, the best a single wave gets; 4 frames: 4 (128 of 132);
+    # 80 frames: 1 (640 of 660)
+    "one_frame": ((MAIN_LEVELS, 1, 1029, 8, 32, 4, 4, H100_OPTIN),
+                  ("staged", 1024, 129, 64, 180864)),
+    "four_frames": ((MAIN_LEVELS, 4, 1029, 8, 32, 4, 4, H100_OPTIN),
+                    ("staged", 1024, 258, 32, 180864)),
+    "eighty_frames": ((MAIN_LEVELS, 80, 1029, 8, 32, 4, 4, H100_OPTIN),
+                      ("staged", 1024, 1029, 8, 180864)),
+    "main_fp32_at_limit": ((MAIN_LEVELS, 20, 1029, 8, 32, 4, 4, 180864),
+                           ("staged", 1024, 343, 24, 180864)),
+    "main_fp32_one_byte_short": ((MAIN_LEVELS, 20, 1029, 8, 32, 4, 4, 180863),
+                                 ("global", 256, 0, 1029, 0)),
+    "no_optin": ((MAIN_LEVELS, 20, 1029, 8, 32, 4, 4, 0), ("global", 256, 0, 1029, 0)),
+    "no_optin_bf16": ((MAIN_LEVELS, 20, 1029, 8, 32, 4, 2, 0), ("global", 256, 0, 1029, 0)),
+    # TTA at 384^2: a 48^2 res3 level, S = 3024: 387 KB of slice in fp32, 194 KB in bf16, which
+    # with the tables (49 KB) does not fit either
+    "res3_48_fp32": ((((12, 12), (24, 24), (48, 48)), 20, 3024, 8, 32, 4, 4, H100_OPTIN),
+                     ("global", 256, 0, 3024, 0)),
+    "res3_48_bf16": ((((12, 12), (24, 24), (48, 48)), 20, 3024, 8, 32, 4, 2, H100_OPTIN),
+                     ("global", 256, 0, 3024, 0)),
+    # D = 16 with 2 levels: 4 lanes a query (8 queries a warp), fp32 and bf16; 3 frames x 3
+    # heads fill a wave best at 8 chunks of 5 queries, 8 blocks a head
+    "d16_l2_fp32": ((((3, 5), (6, 10)), 3, 37, 3, 16, 4, 4, H100_OPTIN),
+                    ("staged", 1024, 5, 24, 75 * 16 * 4 + 32 * 8 * 8 * 32)),  # 70,336
+    "d16_l2_bf16": ((((3, 5), (6, 10)), 3, 37, 3, 16, 4, 2, H100_OPTIN),
+                    ("staged", 1024, 5, 24, 75 * 16 * 2 + 32 * 8 * 8 * 32)),  # 67,936
+    # 4 levels, 16 points a query
+    "l4_fp32": ((((2, 2), (4, 4), (8, 8), (16, 16)), 20, 340, 8, 32, 4, 4, H100_OPTIN),
+                ("staged", 1024, 114, 24, 340 * 32 * 4 + 32 * 4 * 16 * 32)),  # 109,056
+    # odd D in bf16: one element a lane (16 lanes, 2 queries a warp), rows of 26 bytes, the
+    # slice rounded up to 16 bytes
+    "d13_bf16": ((((3, 5), (6, 10)), 3, 37, 3, 13, 4, 2, H100_OPTIN),
+                 ("staged", 1024, 5, 24, 1952 + 32 * 2 * 8 * 32)),  # 75 * 26 = 1950 -> 1952
+}
+
+
+@pytest.mark.parametrize("case", sorted(FWD_PLANS))
+def test_fwd_launch_plan(case):
+    """K1's launch plan is a pure function of the shapes, value's element
+    size and the card's opt-in limit and SM count: the staged kernel exactly
+    when its shared memory (the whole (frame, head) value slice and the
+    warps' corner tables) fits it, its query chunk set by how its blocks
+    fill the SMs' waves, else the global one; and the C function's int
+    array carries the plan, the dtype and the level shapes."""
+    (levels, b, lq, m, d, p, esize, optin), want = FWD_PLANS[case]
+    plan = deform_attn_cuda.fwd_launch_plan(levels, b, lq, m, d, p, esize, optin, H100_SMS)
+    assert tuple(plan) == want
+    assert plan == deform_attn_cuda.fwd_launch_plan(levels, b, lq, m, d, p, esize, optin,
+                                                    H100_SMS)
+    s = sum(h * w for h, w in levels)
+    args = deform_attn_cuda.fwd_plan_args(b, s, lq, m, d, p, esize, levels, plan)
+    assert list(args) == [b, s, lq, m, d, len(levels), p, int(esize == 2),
+                          ("global", "staged").index(want[0]), *want[1:],
+                          *[n for hw in levels for n in hw]]
+
+
+def test_fwd_launch_plan_forced():
+    """A caller names another plan for `ms_deform_attn_cuda(plan=)`: global
+    through an opt-in limit of 0, a staged plan above the card's limit
+    through an unbounded one (its launch must then raise), or a staged plan
+    at other warp and chunk counts built from `staged_bytes`, as the sweep
+    builds them."""
+    assert deform_attn_cuda.fwd_launch_plan(MAIN_LEVELS, 20, 1029, 8, 32, 4, 4, 0,
+                                            H100_SMS).kernel == "global"
+    tta = ((12, 12), (24, 24), (48, 48))
+    plan = deform_attn_cuda.fwd_launch_plan(tta, 20, 3024, 8, 32, 4, 4, 2**31, H100_SMS)
+    assert plan.kernel == "staged" and plan.smem_bytes == 3024 * 32 * 4 + 32 * 4 * 12 * 32
+    assert plan.smem_bytes > H100_OPTIN
+    # 8 warps: the slice and 8 warps' tables of 4 queries x 12 points
+    assert deform_attn_cuda.staged_bytes(MAIN_LEVELS, 32, 4, 4, 256) == 131712 + 8 * 4 * 12 * 32
+    assert deform_attn_cuda.staged_bytes(MAIN_LEVELS, 32, 4, 4) == 180864
+
+
+@pytest.mark.parametrize("source,name,argtypes", [
+    (deform_attn_cuda.SOURCE, "ms_deform_attn_fwd", deform_attn_cuda.FWD_ARGTYPES),
+    (deform_attn_cuda.BWD_SOURCE, "ms_deform_attn_bwd", deform_attn_cuda.BWD_ARGTYPES),
+], ids=["fwd", "bwd"])
+def test_argtypes_match_the_c_signature(source, name, argtypes):
+    """ctypes passes exactly the C function's arguments: a count or a type
+    off would shift the stream into an int (the kernels cannot run here)."""
+    from tests.test_torch_point_sample import c_signature
+
+    assert argtypes == c_signature(source, name)

@@ -175,20 +175,29 @@ def test_three_step_adamw_twin_matches_optax(tiny):
                     weight_decay_embed=WD_EMBED, backbone_multiplier=BACKBONE_MULT,
                     clip_value=CLIP)
     in_groups = {id(p) for g in opt.groups for p in g["params"]}
+    shapes = {n: (p.shape, id(p) in in_groups) for n, p in net.named_parameters()}
     sd0 = {k: v.clone() for k, v in net.state_dict().items()}
-    rng = np.random.RandomState(5)
-    grad_steps = []
-    for _ in range(3):
-        g = {n: rng.randn(*p.shape) * 0.1 if id(p) in in_groups else np.zeros(p.shape)
-             for n, p in net.named_parameters()}
-        grad_steps.append(g)
+
+    def grad_steps():
+        """The three steps' gradients, drawn anew for each side from one seed
+        (one step's worth held at a time: the tiny flagship's 16.8 M-weight
+        audio layer makes each copy 150 MB in float64)."""
+        rng = np.random.RandomState(5)
+        for _ in range(3):
+            yield {n: rng.randn(*shape) * 0.1 if trained else np.zeros(shape)
+                   for n, (shape, trained) in shapes.items()}
+
+    for g in grad_steps():
         opt.zero_grad()
         for n, p in net.named_parameters():
             if id(p) in in_groups:
-                p.grad = torch.from_numpy(g[n].copy())
+                p.grad = torch.from_numpy(g[n])
         opt.step()
-
+    got = convert_combo_checkpoint(
+        {k: (v - sd0[k]).numpy() for k, v in net.state_dict().items()}, **kw)["params"]
     buffers = {n: np.zeros(b.shape) for n, b in net.named_buffers()}
+    del opt, net, sd0, g  # the port's side is done: give its weights and moments back
+
     with jax.enable_x64(True):
         cfg = _cfg(BASE_LR=BASE_LR, MAX_ITER=MAX_ITER, WARMUP_ITERS=WARMUP_ITERS,
                    WARMUP_FACTOR=WARMUP_FACTOR, WEIGHT_DECAY=WD, WEIGHT_DECAY_NORM=WD_NORM,
@@ -197,13 +206,11 @@ def test_three_step_adamw_twin_matches_optax(tiny):
         chain, _ = build_optimizer(cfg, params)
         update = jax.jit(lambda g, st, p: _apply(chain, g, st, p))
         jp, state = params, chain.init(params)
-        for g in grad_steps:
+        for g in grad_steps():
             jg = jax.tree.map(jnp.asarray,
                               convert_combo_checkpoint({**g, **buffers}, **kw)["params"])
             jp, state = update(jg, state, jp)
         want = jax.tree.map(lambda a, b: np.asarray(a) - np.asarray(b), jp, params)
-    got = convert_combo_checkpoint(
-        {k: (v - sd0[k]).numpy() for k, v in net.state_dict().items()}, **kw)["params"]
     moved = 0
     for (path, a), b in zip(jax.tree_util.tree_flatten_with_path(want)[0], jax.tree.leaves(got)):
         a, b = np.asarray(a), np.asarray(b)

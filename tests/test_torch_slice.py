@@ -52,8 +52,9 @@ def release_worker_memory():
     executables, its garbage, and the heap pages glibc keeps after the
     arrays are freed. The tier-1 suite's workers each run many modules, and
     what one module leaves resident adds to every later test of that worker
-    (the sharded JAX training tests need up to 18 GB). The other
-    test_torch_*.py files import this fixture."""
+    (`tests/test_train.py::test_train_step_sharded_avss_amp` alone peaks at
+    30.2 GB resident). The other test_torch_*.py files import this
+    fixture."""
     yield
     gc.collect()
     jax.clear_caches()
@@ -197,17 +198,25 @@ def test_full_width_r50_fp64():
     """Full-width COMBO-R50 (2 encoder and 2 decoder layers, 5 queries) at
     64^2 in float64: both sides compute the same function to rounding (1e-6
     of max |output|)."""
-    port = init_weights(MaskFormer(dec_layers=2, enc_layers=2, num_queries=5, device="cpu"),
-                        seed=1).eval()
-    variables = convert_combo_checkpoint({k: v.numpy() for k, v in port.state_dict().items()},
-                                         dec_layers=2, enc_layers=2)
+    def build():
+        return init_weights(MaskFormer(dec_layers=2, enc_layers=2, num_queries=5, device="cpu"),
+                            seed=1).eval()
+
+    # 145 M weights, 1.2 GB in float64: the JAX side runs while the port holds
+    # none, and the port is built again from its seed afterwards
+    sd = {k: v.numpy() for k, v in build().state_dict().items()}
+    variables = _x64(convert_combo_checkpoint(sd, dec_layers=2, enc_layers=2))
+    del sd
     b = _batch(2, t=1)
     inputs = [b[k].astype(np.float64) for k in ("images", "audio_log_mel", "pre_masks")]
     with jax.enable_x64(True):
         jm = JaxMaskFormer(dec_layers=2, enc_layers=2, num_queries=5)
-        want = jax.tree.map(np.asarray, jax.jit(jm.apply)(_x64(variables), *inputs))
+        want = jax.tree.map(np.asarray, jax.jit(jm.apply)(variables, *inputs))
+    del variables
+    jax.clear_caches()
+    gc.collect()
     with torch.no_grad():
-        got = port.double()(*(torch.from_numpy(a) for a in inputs))
+        got = build().double()(*(torch.from_numpy(a) for a in inputs))
     for k in ("pred_logits", "pred_masks"):
         scale = float(np.abs(want[k]).max())
         np.testing.assert_allclose(got[k].numpy(), want[k], rtol=0, atol=1e-6 * scale)
@@ -241,3 +250,4 @@ def test_chip_smoke_fails_without_card(tmp_path, alone):
                          capture_output=True, text=True, timeout=300)
     assert res.returncode != 0
     assert '"ok": true' not in res.stdout
+
