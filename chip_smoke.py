@@ -20,13 +20,18 @@ non-zero and never prints its last line:
        plan's choice, and global; fp32 and bf16 value; eval and training shapes),
        K2 its backward under both launch plans (level_slice, the plan's
        choice, and global; also a level one row over the opt-in limit),
-       K3/K5 the point-sample forward, K4 its backward,
-       K7 the fused semantic inference (fp32 and bf16 masks; also the time
-       of F.interpolate alone), K6 the point gather (against torch.gather);
+       K3/K5 the point-sample forward, K4 its backward (the image gradient
+       under both launch plans, staged, the plan's choice, and global, at
+       the plan's edges),
+       K7 the fused semantic inference under both launch plans (patch at
+       integer ratios, the plan's choice, and pixel; fp32 and bf16 masks;
+       also the time of F.interpolate alone), K6 the point gather (against
+       torch.gather);
      then each kernel ranked against its library call by device ms;
   4. full-width COMBO-R50 S4 (`MaskFormer()` defaults) from a seeded init on
      the card, `make_eval_step` on 3 batches of 4 videos x 5 frames x 224^2 in
-     fp32 and in bf16; K1 must be launched 6 times and K7 once per batch;
+     fp32 and in bf16; K1 must be launched 6 times and K7 once per batch
+     (through its patch plan);
   5. the eval entry point: a synthetic S4 val tree of 16 videos x 5 frames x
      224^2 (`data/synth.py`), the model saved as a reference `.pth` and
      loaded back, `train/evaluate.py::evaluate` at batch 4 in fp32 and bf16
@@ -37,7 +42,8 @@ non-zero and never prints its last line:
   6. `make_train_step` on the same model, 1 warm-up and 3 timed steps of
      8 videos x 5 frames x 224^2, K = 3 target slots, fp32, S4 frame weights:
      finite losses, the frozen tower and FrozenBN unchanged, the decoder
-     changed, and each kernel launched as often as the step implies;
+     changed, and each kernel launched as often as the step implies (K4's
+     image gradient through its staged plan);
   7. the same weights on the card (TF32 off) against the CPU (plain path):
      the inference forward on one 224^2 frame, and the training losses and
      gradients on 1 video x 5 frames x 128^2 with the same injected draws;
@@ -122,6 +128,22 @@ POINT_EDGE_CASES = (
     ("misaligned_c3_global", (2, 224, 224, 3), 999, True),
     ("misaligned_channels", (2, 56, 56, 100), 300, True),
 )
+
+# K4 dimg at the criterion's shape and its launch plan's edges: name, feat
+# [N, H, W, C], points, inputs misaligned, the kernel the plan must choose on
+# an H100's 132 SMs (global below 8 images; and images at and one element
+# over the card's opt-in shared memory, made from the card's limit in
+# phase_point_sample)
+DIMG_CASES = [
+    ("train", (TRAIN_M, MASK_HW, MASK_HW, 1), NUM_POINTS, False, "staged"),
+    ("ragged", (3, 7, 5, 33), 101, False, "global"),
+    ("c4_staged", (16, 32, 32, 4), 1003, False, "staged"),
+    ("c3_odd_p", (16, 56, 56, 3), 12545, False, "staged"),
+    ("misaligned", (16, 56, 56, 1), 2048, True, "staged"),
+    ("eight_images", (8, 56, 56, 1), 12544, False, "staged"),
+    ("one_image", (1, 56, 56, 1), 12544, False, "global"),
+    ("many_images", (300, 56, 56, 1), 2000, False, "staged"),
+]
 
 # K7 at the eval tail: mask [20, 100, 56, 56] -> [20, 2, 224, 224]
 K7_SHAPE = dict(N=B * T, Q=NUM_QUERIES, C=2, h=MASK_HW, w=MASK_HW)
@@ -569,6 +591,84 @@ def phase_point_sample(dev: torch.device) -> dict:
                 f"{bd['bound_by']} ({bd['bound_ms'] / t['ms']:.0%} of it)")
             shapes.append(dict(name=name, shape=[n, hh, ww, c], points=p, **t, **err, **bd))
 
+    # K4 dimg under both launch plans: the plan's choice through the wrapper,
+    # the other forced (global always takes a shape; staged only C <= 4 and
+    # an image that fits), against the plain version's autograd
+    optin, sms = k.smem_optin(dev.index), k.sm_count(dev.index)
+    # images whose staged shared memory (4 bytes an element) fills the
+    # card's opt-in limit exactly, and one element more
+    fits = max(w for w in range(optin // 4 - 4, optin // 4 + 1)
+               if k.dimg_smem_bytes(1, w, 1) <= optin)
+    edges = [("at_smem_limit", (16, 1, fits, 1), 3001, False, "staged"),
+             ("one_over_smem_limit", (16, 1, fits + 1, 1), 3001, False, "global")]
+    dimg = {}
+    for i, (name, (n, hh, ww, c), p, misalign, kernel) in enumerate(DIMG_CASES + edges):
+        feat, pts = point_inputs(n, hh, ww, c, p, dev, seed=60 + i)
+        dout = torch.randn((n, p, c), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(i))
+        f_ = feat.clone().requires_grad_()
+        out = point_sample_plain(f_, pts)
+        want = torch.autograd.grad(out, f_, dout, retain_graph=True)[0]
+        if misalign:
+            pts, dout = misaligned(pts), misaligned(dout)
+        chosen = k.dimg_launch_plan(n, hh, ww, c, p, pts.data_ptr(), dout.data_ptr(), sms, optin)
+        if chosen.kernel != kernel:
+            raise AssertionError(f"[k4] dimg {name}: the launch plan chose {chosen}, "
+                                 f"expected {kernel}")
+        plans = [(chosen, None)]
+        if chosen.kernel == "staged":  # global at an opt-in limit of 0
+            other = k.dimg_launch_plan(n, hh, ww, c, p, 0, 0, sms, 0)
+            plans.append((other, other))
+        else:  # staged where it can take the shape: the plan for a card of one SM
+            other = k.dimg_launch_plan(n, hh, ww, c, p, pts.data_ptr(), dout.data_ptr(), 1, optin)
+            if other.kernel == "staged":
+                plans.append((other, other))
+        for plan, forced in plans:
+            fn = lambda: k.point_sample_dimg_cuda(pts, dout, (hh, ww), plan=forced)  # noqa: E731
+            err = compare(f"[k4] dimg {name} ({plan.kernel}, [{n},{hh},{ww},{c}] at {p} "
+                          f"points{', misaligned' if misalign else ''})", fn(), want, TOL_FP32)
+            if name != "train":
+                continue
+            got = fn()
+            nchw, grid = feat.permute(0, 3, 1, 2).contiguous(), _grid(pts)
+            dlib = dout.permute(0, 2, 1)[..., None].contiguous()  # [N, C, P, 1]
+            # the library's backward as autograd calls it for the image: one
+            # ATen op (bilinear, zero padding, align_corners=False)
+            lib = lambda: torch.ops.aten.grid_sampler_2d_backward(  # noqa: E731
+                dlib, nchw, grid, 0, 0, False, [True, False])
+            plain = lambda: torch.autograd.grad(out, f_, dout, retain_graph=True)  # noqa: E731
+            t = timings(fn, plain=plain if forced is None else None,
+                        library=lib if forced is None else None)
+            # a product and an add per in-image corner and channel
+            bd = bound(nbytes(pts, dout, got), 2 * c * point_corners(pts, hh, ww))
+            log(f"[k4] dimg {name}: {plan.kernel} plan {plan}: "
+                f"{describe(t, 'grid_sampler_2d_backward')}; bound {bd['bound_ms']:.4f} ms by "
+                f"{bd['bound_by']} ({bd['bound_ms'] / t['ms']:.0%} of it)")
+            dimg[plan.kernel] = dict(err, plan=plan._asdict(), **t, **bd)
+    # an inf among one image's gradients, through the staged plan: inf at
+    # the point's four corners, as the plain version has it
+    feat, pts = point_inputs(16, MASK_HW, MASK_HW, 1, 2048, dev, seed=70)
+    pts[1, 7] = torch.tensor([10.3 / MASK_HW, 20.3 / MASK_HW], device=dev)  # 4 corners inside
+    dout = torch.randn((16, 2048, 1), device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(70))
+    dout[1, 7, 0] = float("inf")
+    if k.dimg_launch_plan(16, MASK_HW, MASK_HW, 1, 2048, pts.data_ptr(), dout.data_ptr(), sms,
+                          optin).kernel != "staged":
+        raise AssertionError("[k4] dimg inf_gradient: the launch plan did not stage it")
+    f_ = feat.clone().requires_grad_()
+    want = torch.autograd.grad(point_sample_plain(f_, pts), f_, dout)[0]
+    got = k.point_sample_dimg_cuda(pts, dout, (MASK_HW, MASK_HW))
+    finite = torch.isfinite(want)
+    if not torch.equal(torch.isfinite(got), finite) or int((~finite).sum()) != 4:
+        raise AssertionError("[k4] dimg with an inf gradient: the non-finite elements differ "
+                             "from the plain version's")
+    compare("[k4] dimg inf_gradient (finite elements)", got[finite], want[finite], TOL_FP32)
+
+    st, gl = dimg["staged"], dimg["global"]
+    log(f"[k4] dimg train, device ms: staged {st['ms']:.4f} against global {gl['ms']:.4f} "
+        f"({st['ms'] / gl['ms']:.2f}x) and grid_sampler_2d_backward {st['library_ms']:.4f}; "
+        f"the card's opt-in limit {optin} bytes per block, {sms} SMs")
+
     back = {}
     for name, (n, hh, ww, c), p in [("train", (M, h, h, 1), P), ("ragged", (3, 7, 5, 33), 101)]:
         feat, pts = point_inputs(n, hh, ww, c, p, dev, seed=40 + len(name))
@@ -576,40 +676,26 @@ def phase_point_sample(dev: torch.device) -> dict:
                            generator=torch.Generator(device=dev).manual_seed(len(name)))
         f_, p_ = feat.clone().requires_grad_(), pts.clone().requires_grad_()
         out = point_sample_plain(f_, p_)
-        want_df, want_dp = torch.autograd.grad(out, (f_, p_), dout, retain_graph=True)
-        got_df = k.point_sample_dimg_cuda(pts, dout, (hh, ww))
+        want_dp = torch.autograd.grad(out, p_, dout, retain_graph=True)[0]
         got_dp = k.point_sample_dxy_cuda(feat, pts, dout)
-        e_img = compare(f"[k4] {name} dimg", got_df, want_df, TOL_FP32)
         e_xy = compare(f"[k4] {name} dxy", got_dp, want_dp, TOL_FP32)
         if name != "train":
             continue
         nchw, grid = feat.permute(0, 3, 1, 2).contiguous(), _grid(pts)
         dlib = dout.permute(0, 2, 1)[..., None].contiguous()  # [N, C, P, 1]
-        corners = point_corners(pts, hh, ww)
-        # the library's backward as autograd calls it for one of the two
-        # inputs: one ATen op (bilinear, zero padding, align_corners=False)
-        lib_bwd = lambda mask: torch.ops.aten.grid_sampler_2d_backward(  # noqa: E731
-            dlib, nchw, grid, 0, 0, False, mask)
-        for kind, fn, plain_fn, lib_fn, bd, err in (
-            ("dimg", lambda: k.point_sample_dimg_cuda(pts, dout, (hh, ww)),
-             lambda: torch.autograd.grad(out, f_, dout, retain_graph=True),
-             lambda: lib_bwd([True, False]),
-             # a product and an atomic add per in-image corner and channel
-             bound(nbytes(pts, dout, got_df), 2 * c * corners), e_img),
-            ("dxy", lambda: k.point_sample_dxy_cuda(feat, pts, dout),
-             lambda: torch.autograd.grad(out, p_, dout, retain_graph=True),
-             lambda: lib_bwd([False, True]),
-             # per point and channel: two corner differences, two weights, a
-             # sum and an FMA with dout, for x and for y
-             bound(nbytes(feat, pts, dout, got_dp), 14 * c * n * p), e_xy),
-        ):
-            t = timings(fn, plain=plain_fn, library=lib_fn)
-            log(f"[k4] {kind}: [{n},{hh},{ww},{c}] at {p} points: "
-                f"{describe(t, 'F.grid_sample backward')} (autograd); bound "
-                f"{bd['bound_ms']:.4f} ms by {bd['bound_by']}")
-            back[kind] = dict(err, **t, **bd)
+        t = timings(lambda: k.point_sample_dxy_cuda(feat, pts, dout),
+                    plain=lambda: torch.autograd.grad(out, p_, dout, retain_graph=True),
+                    library=lambda: torch.ops.aten.grid_sampler_2d_backward(
+                        dlib, nchw, grid, 0, 0, False, [False, True]))
+        # per point and channel: two corner differences, two weights, a sum
+        # and an FMA with dout, for x and for y
+        bd = bound(nbytes(feat, pts, dout, got_dp), 14 * c * n * p)
+        log(f"[k4] dxy: [{n},{hh},{ww},{c}] at {p} points: "
+            f"{describe(t, 'grid_sampler_2d_backward')} (autograd); bound "
+            f"{bd['bound_ms']:.4f} ms by {bd['bound_by']}")
+        back["dxy"] = dict(e_xy, **t, **bd)
         del out
-    return {"fwd": shapes, **back}
+    return {"fwd": shapes, "dimg": dict(st, global_plan=gl), **back}
 
 
 def seminf_inputs(N, Q, C, h, w, dtype, device, seed):
@@ -627,42 +713,72 @@ def seminf_inputs(N, Q, C, h, w, dtype, device, seed):
 
 
 def phase_k7(dev: torch.device) -> dict:
-    """K7 against the plain composition at the eval tail's shape (fp32 and
-    bf16 masks) and a ragged one, with the time of the resize alone."""
+    """K7 against the plain composition under both launch plans: the plan's
+    choice through the wrapper and the pixel kernel forced (the patch kernel
+    takes integer ratios of at least 2 only), at the eval tail's shape (fp32
+    and bf16 masks), integer ratios other than 4, a ratio of 1 and a ragged
+    one, each with the temporal mask on and off; both plans timed at the eval shape, with the
+    time of the resize alone."""
     import torch.nn.functional as F
 
     from combo_avs_torch.ops import seminf_cuda as k
 
     result = {}
+    x3 = dict(K7_SHAPE, N=4)  # 56^2 -> 168^2: ratio 3
     cases = [("fp32", torch.float32, K7_SHAPE, (SIZE, SIZE), TOL_FP32),
              ("bf16", torch.bfloat16, K7_SHAPE, (SIZE, SIZE), K7_TOL_BF16),
-             ("ragged_fp32", torch.float32, dict(N=3, Q=7, C=5, h=5, w=9), (13, 31), TOL_FP32)]
+             ("x3_fp32", torch.float32, x3, (3 * MASK_HW, 3 * MASK_HW), TOL_FP32),
+             ("x3_bf16", torch.bfloat16, x3, (3 * MASK_HW, 3 * MASK_HW), K7_TOL_BF16),
+             ("x2x8_c5_fp32", torch.float32, dict(N=3, Q=9, C=5, h=7, w=6), (14, 48), TOL_FP32),
+             ("ragged_fp32", torch.float32, dict(N=3, Q=7, C=5, h=5, w=9), (13, 31), TOL_FP32),
+             ("same_size_fp32", torch.float32, dict(N=2, Q=3, C=8, h=6, w=6), (6, 6), TOL_FP32)]
     with torch.inference_mode():
         for name, dtype, shp, size, tol in cases:
             cls, mask, tm = seminf_inputs(shp["N"], shp["Q"], shp["C"], shp["h"], shp["w"],
                                           dtype, dev, seed=30 + len(name))
-            for temporal in (None, tm):
-                got = k.seminf_cuda(cls, mask, size, temporal)
-                err = compare(f"[k7] {name}{'' if temporal is None else ' temporal'}", got,
-                              k.semantic_inference_plain(cls, mask, size, temporal), tol)
-            if name.startswith("ragged"):
+            chosen = k.launch_plan(shp["N"], shp["Q"], shp["C"], shp["h"], shp["w"], *size)
+            integer = (size[0] % shp["h"] == 0 and size[1] % shp["w"] == 0
+                       and min(size[0] // shp["h"], size[1] // shp["w"]) >= 2)
+            if chosen.kernel != ("patch" if integer else "pixel"):
+                raise AssertionError(f"[k7] {name}: the launch plan chose {chosen}")
+            plans = [(chosen, None)]
+            if chosen.kernel == "patch":
+                pixel = k.pixel_plan(shp["Q"], shp["C"], *size)
+                plans.append((pixel, pixel))
+            row = {"chosen": chosen.kernel, "plans": {}}
+            for plan, forced in plans:
+                for temporal in (None, tm):
+                    got = k.seminf_cuda(cls, mask, size, temporal, plan=forced)
+                    err = compare(f"[k7] {name} ({plan.kernel}"
+                                  f"{'' if temporal is None else ', temporal'})", got,
+                                  k.semantic_inference_plain(cls, mask, size, temporal), tol)
+                if name not in ("fp32", "bf16"):
+                    continue
+                t = timings(lambda: k.seminf_cuda(cls, mask, size, plan=forced),
+                            plain=(lambda: k.semantic_inference_plain(cls, mask, size))
+                            if forced is None else None)
+                # per (pixel, query): the bilinear sample (4 products, 3 sums
+                # and the weights' share), the sigmoid (negate, exp, add,
+                # reciprocal) and a multiply-add per class
+                flops = shp["N"] * size[0] * size[1] * shp["Q"] * (12 + 2 * shp["C"])
+                bd = bound(nbytes(cls, mask) + shp["N"] * shp["C"] * size[0] * size[1] * 4,
+                           flops)
+                log(f"[k7] {name}: mask {list(mask.shape)} -> {size}: {plan.kernel} plan "
+                    f"{plan}: {describe(t)}; bound {bd['bound_ms']:.4f} ms by {bd['bound_by']} "
+                    f"({bd['bound_ms'] / t['ms']:.0%} of it)")
+                row["plans"][plan.kernel] = dict(err, plan=plan._asdict(), **t, **bd)
+            if name not in ("fp32", "bf16"):
                 continue
-            t = timings(lambda: k.seminf_cuda(cls, mask, size),
-                        plain=lambda: k.semantic_inference_plain(cls, mask, size))
             # F.interpolate alone: a part of the plain version, not the same function
             resize = timings(lambda: F.interpolate(mask, size=size, mode="bilinear",
                                                    align_corners=False, antialias=False))
-            # per (pixel, query): the bilinear sample (4 products, 3 sums and
-            # the weights' share), the sigmoid (negate, exp, add, reciprocal)
-            # and a multiply-add per class
-            flops = shp["N"] * size[0] * size[1] * shp["Q"] * (12 + 2 * shp["C"])
-            bd = bound(nbytes(cls, mask) + shp["N"] * shp["C"] * size[0] * size[1] * 4, flops)
-            log(f"[k7] {name}: mask {list(mask.shape)} -> {size}: {describe(t)}; "
-                f"F.interpolate alone {resize['ms']:.4f} ms device ({resize['device_source']}), "
-                f"{resize['call_ms']:.4f} ms call, {resize['host_us']:.1f} us host; bound "
-                f"{bd['bound_ms']:.4f} ms by {bd['bound_by']}")
-            result[name] = dict(err, **t, resize_ms=resize["ms"],
-                                resize_call_ms=resize["call_ms"], **bd)
+            pa, px = row["plans"]["patch"], row["plans"]["pixel"]
+            log(f"[k7] {name}, device ms: patch {pa['ms']:.4f} against pixel {px['ms']:.4f} "
+                f"({pa['ms'] / px['ms']:.2f}x); F.interpolate alone {resize['ms']:.4f} ms device "
+                f"({resize['device_source']}), {resize['call_ms']:.4f} ms call, "
+                f"{resize['host_us']:.1f} us host")
+            result[name] = dict(pa, pixel_plan=px, resize_ms=resize["ms"],
+                                resize_call_ms=resize["call_ms"])
     return result
 
 
@@ -737,7 +853,10 @@ def reset_counts():
     deform_attn_cuda.fwd_plan_launches.update(dict.fromkeys(deform_attn_cuda.fwd_plan_launches, 0))
     point_sample_cuda.fwd_launches = point_sample_cuda.dimg_launches = 0
     point_sample_cuda.dxy_launches = 0
+    point_sample_cuda.dimg_plan_launches.update(dict.fromkeys(point_sample_cuda.dimg_plan_launches,
+                                                              0))
     gather_cuda.launches = seminf_cuda.launches = 0
+    seminf_cuda.plan_launches.update(dict.fromkeys(seminf_cuda.plan_launches, 0))
 
 
 def read_counts() -> dict:
@@ -750,7 +869,7 @@ def read_counts() -> dict:
 
 
 def phase_slice(model, smi: str) -> dict:
-    from combo_avs_torch.ops import deform_attn_cuda
+    from combo_avs_torch.ops import deform_attn_cuda, seminf_cuda
     from combo_avs_torch.train.train_step import make_eval_step
 
     dev = next(model.parameters()).device
@@ -765,10 +884,11 @@ def phase_slice(model, smi: str) -> dict:
     torch.cuda.synchronize()
 
     reset_counts()
-    fps, k1_plans = {}, {}
+    fps, k1_plans, k7_plans = {}, {}, {}
     for name, step in steps.items():
         before = read_counts()
         plans_before = dict(deform_attn_cuda.fwd_plan_launches)
+        k7_before = dict(seminf_cuda.plan_launches)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         outs = [step(b) for b in batches]
@@ -785,6 +905,11 @@ def phase_slice(model, smi: str) -> dict:
         if k1_plans[name][chosen] != n:
             raise AssertionError(f"[slice] {name}: K1 launches by plan {k1_plans[name]}, "
                                  f"expected all {n} through {chosen}")
+        # the eval tail's 4x upsample takes K7's patch plan
+        k7_plans[name] = {kn: c - k7_before[kn] for kn, c in seminf_cuda.plan_launches.items()}
+        if k7_plans[name] != {"pixel": 0, "patch": NUM_BATCHES}:
+            raise AssertionError(f"[slice] {name}: K7 launches by plan {k7_plans[name]}, "
+                                 f"expected all {NUM_BATCHES} through patch")
         for o in outs:
             if tuple(o.shape) != (B * T, 2, SIZE, SIZE) or o.dtype != torch.float32:
                 raise AssertionError(f"[slice] {name}: output {tuple(o.shape)} {o.dtype}")
@@ -798,11 +923,12 @@ def phase_slice(model, smi: str) -> dict:
         fps[name] = NUM_BATCHES * B * T / dt
         log(f"[slice] {name}: {NUM_BATCHES} x [{B}x{T}x{SIZE}^2] -> {tuple(outs[0].shape)} "
             f"range [{float(outs[0].min()):.4f}, {float(outs[0].max()):.4f}], "
-            f"K1 launches {n} (by plan {k1_plans[name]}), K7 {after['k7'] - before['k7']}, "
+            f"K1 launches {n} (by plan {k1_plans[name]}), K7 {after['k7'] - before['k7']} "
+            f"(by plan {k7_plans[name]}), "
             f"{fps[name]:.1f} frames/s on {smi} "
             f"(TF32 matmul {torch.backends.cuda.matmul.allow_tf32}, "
             f"cuDNN {torch.backends.cudnn.allow_tf32})")
-    return {"launches": read_counts(), "fps": fps, "k1_plans": k1_plans}
+    return {"launches": read_counts(), "fps": fps, "k1_plans": k1_plans, "k7_plans": k7_plans}
 
 
 def phase_eval_entry(model, smi: str) -> dict:
@@ -912,6 +1038,7 @@ def phase_train_fallback(model) -> dict:
 def phase_train(model, smi: str) -> dict:
     """make_train_step at full width: 1 warm-up and TRAIN_STEPS timed steps."""
     from combo_avs_torch.losses.criterion import SetCriterion, build_weight_dict
+    from combo_avs_torch.ops import point_sample_cuda
     from combo_avs_torch.train.optim import Optimizer
     from combo_avs_torch.train.train_step import make_train_step
 
@@ -940,6 +1067,10 @@ def phase_train(model, smi: str) -> dict:
     want = {k: v * steps for k, v in TRAIN_LAUNCHES.items()}
     if counts != want:
         raise AssertionError(f"[train] launches {counts} in {steps} steps, expected {want}")
+    dimg_plans = dict(point_sample_cuda.dimg_plan_launches)
+    if dimg_plans != {"global": 0, "staged": want["k4_dimg"]}:
+        raise AssertionError(f"[train] K4 dimg launches by plan {dimg_plans}: every one should "
+                             "take the staged plan")
     for m in metrics:
         if set(m) != {"total_loss", *wd} or not all(np.isfinite(v) for v in m.values()):
             raise AssertionError(f"[train] losses not finite or misnamed: {m}")
@@ -958,8 +1089,9 @@ def phase_train(model, smi: str) -> dict:
         f"max_memory_allocated {peak / 2**30:.2f} GiB on {smi} (TF32 matmul "
         f"{torch.backends.cuda.matmul.allow_tf32}, cuDNN {torch.backends.cudnn.allow_tf32}); "
         f"{len(changed)} of {len(before)} tensors changed, frozen ones unchanged; launches "
-        f"{counts} in {steps} steps")
-    return {"launches": counts, "s_per_step": med, "peak_bytes": peak, "times": times}
+        f"{counts} in {steps} steps (K4 dimg by plan {dimg_plans})")
+    return {"launches": counts, "s_per_step": med, "peak_bytes": peak, "times": times,
+            "dimg_plans": dimg_plans}
 
 
 def phase_card_vs_cpu(model) -> None:
@@ -1248,7 +1380,11 @@ def main(argv=None) -> int:
         kernel_entry("point_sample_bwd_dimg", "combo_avs_torch/csrc/point_sample_bwd.cu",
                      REPLACES["k4"], {"eval": ev["k4_dimg"], "train": tl["k4_dimg"],
                                        "train_fallback": fb["k4_dimg"]}, ps["dimg"],
-                     shape="dout [120,12544,1] into [120,56,56,1]",
+                     shape="dout [120,12544,1] into [120,56,56,1]", plan="staged",
+                     train_launches_by_plan=tr["dimg_plans"],
+                     plan_detail=ps["dimg"]["plan"],
+                     **{f"global_{k}": ps["dimg"]["global_plan"][k]
+                        for k in ("max_abs_err", "ms", "call_ms", "host_us", "device_source")},
                      also_replaces=REPLACES["k4_dxy"],
                      dxy_launches={"eval": ev["k4_dxy"], "train": tl["k4_dxy"],
                                    "train_fallback": fb["k4_dxy"]},
@@ -1256,12 +1392,16 @@ def main(argv=None) -> int:
                                                            "bound_ms", "bound_by")}),
         kernel_entry("seminf_fwd", "combo_avs_torch/csrc/seminf_fwd.cu", REPLACES["k7"],
                      {"eval": ev["k7"], "eval_entry": entry["k7"], "train": tl["k7"]}, k7["fp32"],
-                     shape="mask [20,100,56,56] fp32 -> [20,2,224,224]",
+                     shape="mask [20,100,56,56] fp32 -> [20,2,224,224]", plan="patch",
+                     plan_detail=k7["fp32"]["plan"], eval_launches_by_plan=sl["k7_plans"],
                      resize_ms=k7["fp32"]["resize_ms"],
                      resize_call_ms=k7["fp32"]["resize_call_ms"],
                      max_abs_err_bf16=k7["bf16"]["max_abs_err"], ms_bf16=k7["bf16"]["ms"],
                      call_ms_bf16=k7["bf16"]["call_ms"], plain_ms_bf16=k7["bf16"]["plain_ms"],
-                     resize_ms_bf16=k7["bf16"]["resize_ms"], bound_ms_bf16=k7["bf16"]["bound_ms"]),
+                     resize_ms_bf16=k7["bf16"]["resize_ms"], bound_ms_bf16=k7["bf16"]["bound_ms"],
+                     **{f"pixel_{k}{sfx}": k7[name]["pixel_plan"][k]
+                        for name, sfx in (("fp32", ""), ("bf16", "_bf16"))
+                        for k in ("max_abs_err", "ms", "call_ms", "host_us")}),
         kernel_entry("gather_points", "combo_avs_torch/csrc/gather.cu", REPLACES["k6"],
                      {"eval": ev["k6"], "train": tl["k6"], "train_fallback": fb["k6"]}, k6,
                      shape="src [120,37632,2] fp32, idx [120,9408] int64"),

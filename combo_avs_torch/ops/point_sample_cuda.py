@@ -5,9 +5,11 @@ kernels (`csrc/point_sample_bwd.cu`, the TPU's K4), and their
 
 `point_sample_cuda(feat [N, H, W, C], points [N, P, 2]) -> [N, P, C]` is what
 `ops.grid_sample.point_sample` calls for a CUDA tensor. The forward's kernel
-and its grid come from `launch_plan`, a pure function of the shapes and the
-inputs' alignment that the CPU tests check; the C function only executes
-the plan it is given. Its backward launches
+and its grid come from `launch_plan`, the image gradient's from
+`dimg_launch_plan`: pure functions of the shapes, the inputs' alignment (and
+for dimg the card's SM count and opt-in shared memory) that the CPU tests
+check; the C functions only execute the plan they are given. The backward
+launches
 the image-gradient kernel when `feat` needs a gradient and the
 point-gradient kernel only when `points` do (on the training path they never
 do: the criterion's points are drawn, not learned). Every wrapper raises on a
@@ -15,18 +17,19 @@ tensor it cannot take; none falls back to the plain version.
 
 `fwd_launches`, `dimg_launches` and `dxy_launches` count the kernels'
 launches in this process, each incremented where its kernel is launched and
-nowhere else.
+nowhere else; `dimg_plan_launches` splits the image gradient's by plan.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from combo_avs_torch.ops import _build
+from combo_avs_torch.ops.deform_attn_cuda import sm_count, smem_optin
 
 FWD_SOURCE = "point_sample_fwd.cu"
 BWD_SOURCE = "point_sample_bwd.cu"
@@ -35,6 +38,7 @@ SOURCES = (FWD_SOURCE, BWD_SOURCE)
 fwd_launches = 0
 dimg_launches = 0
 dxy_launches = 0
+dimg_plan_launches = {"global": 0, "staged": 0}
 
 _INT = ctypes.c_int
 _PTR = ctypes.c_void_p
@@ -43,7 +47,7 @@ _SIGNATURES = {
     # plan as one int array (_plan_args), which ctypes converts at a third of
     # the cost of 11 separate ints
     "point_sample_fwd": (FWD_SOURCE, [_PTR] * 3 + [ctypes.POINTER(_INT), _PTR]),
-    "point_sample_bwd_dimg": (BWD_SOURCE, [_PTR] * 3 + [_INT] * 6 + [_PTR]),
+    "point_sample_bwd_dimg": (BWD_SOURCE, [_PTR] * 3 + [ctypes.POINTER(_INT), _PTR]),
     "point_sample_bwd_dxy": (BWD_SOURCE, [_PTR] * 4 + [_INT] * 6 + [_PTR]),
 }
 _bound: dict = {}  # name -> the ctypes function, bound once per process
@@ -108,6 +112,113 @@ def _plan_args(N: int, H: int, W: int, C: int, P: int, feat_ptr: int, points_ptr
     plan = launch_plan(N, H, W, C, P, feat_ptr, points_ptr)
     return (_INT * 11)(N, H, W, C, P, int(plan.kernel == "channels"), int(plan.vec),
                        int(plan.stage16), plan.points_per_block, *plan.grid)
+
+
+# the image gradient's launch plan (csrc/point_sample_bwd.cu executes it)
+DIMG_KERNELS = ("global", "staged")  # the C function's kernel codes 0, 1
+MAX_STAGED_C = 4  # the staged kernel keeps a point's C gradients in registers
+DIMG_THREADS = 1024  # threads per staged block
+DIMG_CLUSTERS = (1, 2, 4)  # blocks per image the plan chooses from
+SM_THREADS = 2048  # the threads an SM holds: the staged blocks fill one wave of them
+# the least share of the SMs the staged blocks must reach at the largest
+# cluster, else the global kernel, whose atomics spread over every SM, is
+# faster (scripts/bench_point_bwd_plans.py, 12544 points an image: global
+# faster up to 4 images, the two equal at 8, staged faster from 12)
+DIMG_MIN_FILL = 0.24
+
+
+class DimgLaunchPlan(NamedTuple):
+    """How `csrc/point_sample_bwd.cu` computes the image gradient [N, H, W,
+    C] of the forward against `grad_out` [N, P, C].
+
+    kernel: "staged" (C <= MAX_STAGED_C, an image whose fp32 accumulator
+        fits the card's opt-in shared memory, and images enough to fill
+        DIMG_MIN_FILL of the SMs: a cluster of `cluster` blocks per image,
+        each summing its share of the points in its shared accumulator; the
+        cluster then sums its accumulators and stores the image once) or
+        "global" (a group of lanes per point adds into a zeroed output with
+        global atomics);
+    threads: threads per block;
+    cluster: blocks per image (1 for "global");
+    points_per_block: the points a staged block takes (a multiple of 4; 0
+        for "global");
+    grid: (x, y); staged: (cluster, image rows), the rows looping over N
+        when N > GRID_ROWS; global: (blocks, 1);
+    vec: the staged kernel reads 4 points as two float4 and their gradients
+        as C float4 (every image's points and gradients 16-byte aligned);
+    smem_bytes: the staged block's dynamic shared memory (`dimg_smem_bytes`;
+        0 for "global");
+    log2_group: the global kernel's lanes per point, log2 (0 for "staged")."""
+
+    kernel: str
+    threads: int
+    cluster: int
+    points_per_block: int
+    grid: Tuple[int, int]
+    vec: bool
+    smem_bytes: int
+    log2_group: int
+
+
+def dimg_smem_bytes(H: int, W: int, C: int) -> int:
+    """The staged kernel's shared memory: the image's fp32 accumulator, in
+    whole float4."""
+    return -(-H * W * C // 4) * 16
+
+
+def dimg_cluster(N: int, P: int, sm_count: int) -> int:
+    """Blocks per image: the most of DIMG_CLUSTERS whose N * blocks of
+    DIMG_THREADS fit one wave of the card's SMs at SM_THREADS each, else the
+    fewest (scripts/bench_point_bwd_plans.py: 2 blocks an image fastest at
+    120 images, 4 at 60 and fewer, 1 at 300); and no more than give every
+    block at least one of the P points in runs of POINTS_PER_THREAD."""
+    wave = SM_THREADS // DIMG_THREADS * sm_count
+    cluster = max((c for c in DIMG_CLUSTERS if N * c <= wave), default=DIMG_CLUSTERS[0])
+    while cluster > 1 and (cluster - 1) * _dimg_points_per_block(P, cluster) >= P:
+        cluster //= 2
+    return cluster
+
+
+def _dimg_points_per_block(P: int, cluster: int) -> int:
+    return -(-P // (cluster * POINTS_PER_THREAD)) * POINTS_PER_THREAD
+
+
+def dimg_launch_plan(N: int, H: int, W: int, C: int, P: int, points_ptr: int, grad_ptr: int,
+                     sm_count: int, smem_optin: int) -> DimgLaunchPlan:
+    """The image gradient's launch plan, a pure function of the shapes, the
+    inputs' addresses (the output is a fresh, aligned allocation), the
+    card's SM count and its opt-in shared memory per block: "staged" when C
+    <= MAX_STAGED_C, the image's accumulator fits that limit and N images
+    at the largest cluster reach DIMG_MIN_FILL of the SMs; else
+    "global"."""
+    smem = dimg_smem_bytes(H, W, C)
+    if (C <= MAX_STAGED_C and smem <= smem_optin
+            and N * DIMG_CLUSTERS[-1] >= DIMG_MIN_FILL * sm_count):
+        cluster = dimg_cluster(N, P, sm_count)
+        vec = points_ptr % 16 == 0 and grad_ptr % 16 == 0 and P % 2 == 0 and (P * C) % 4 == 0
+        return DimgLaunchPlan("staged", DIMG_THREADS, cluster, _dimg_points_per_block(P, cluster),
+                              (cluster, min(N, GRID_ROWS)), vec, smem, 0)
+    group = _log2_group(C)
+    blocks = -(-((N * P) << group) // THREADS)
+    return DimgLaunchPlan("global", THREADS, 1, 0, (blocks, 1), False, 0, group)
+
+
+def dimg_plan_args(N: int, H: int, W: int, C: int, P: int, plan: DimgLaunchPlan):
+    """The image gradient's C int array: N, H, W, C, P, the plan's kernel (0
+    global, 1 staged), threads, cluster, points per block, grid x, grid y,
+    vec, shared-memory bytes, log2_group."""
+    return (_INT * 14)(N, H, W, C, P, DIMG_KERNELS.index(plan.kernel), plan.threads,
+                       plan.cluster, plan.points_per_block, *plan.grid, int(plan.vec),
+                       plan.smem_bytes, plan.log2_group)
+
+
+@functools.lru_cache(maxsize=1024)
+def _chosen_dimg_plan(N: int, H: int, W: int, C: int, P: int, points_ptr: int, grad_ptr: int,
+                      sm_count: int, smem_optin: int):
+    """dimg_launch_plan's choice and its int array, made once per shape and
+    alignment (the addresses are passed modulo 16)."""
+    plan = dimg_launch_plan(N, H, W, C, P, points_ptr, grad_ptr, sm_count, smem_optin)
+    return plan, dimg_plan_args(N, H, W, C, P, plan)
 
 
 def _kernel(name: str):
@@ -176,10 +287,12 @@ def point_sample_fwd_cuda(feat: torch.Tensor, points: torch.Tensor) -> torch.Ten
     return out
 
 
-def point_sample_dimg_cuda(points: torch.Tensor, grad_out: torch.Tensor,
-                           image_hw) -> torch.Tensor:
+def point_sample_dimg_cuda(points: torch.Tensor, grad_out: torch.Tensor, image_hw,
+                           plan: Optional[DimgLaunchPlan] = None) -> torch.Tensor:
     """Launch the image-gradient kernel: the gradient [N, H, W, C] of the
-    forward's output against `grad_out` [N, P, C]."""
+    forward's output against `grad_out` [N, P, C]. `plan` is
+    `dimg_launch_plan`'s choice unless the caller names another (to check
+    or time it); a launch that fails raises, whatever the plan."""
     global dimg_launches
     N, P = _check("point_sample_dimg_cuda", points, grad_out)
     H, W = (int(n) for n in image_hw)
@@ -188,13 +301,22 @@ def point_sample_dimg_cuda(points: torch.Tensor, grad_out: torch.Tensor,
                          f"{tuple(grad_out.shape)}")
     C = grad_out.shape[2]
     _check_image("point_sample_dimg_cuda", N, H, W, C, P)
-    dfeat = torch.zeros((N, H, W, C), dtype=torch.float32, device=grad_out.device)
-    err = _kernel("point_sample_bwd_dimg")(points.data_ptr(), grad_out.data_ptr(),
-                                           dfeat.data_ptr(), N, H, W, C, P, _log2_group(C),
-                                           _stream(grad_out))
+    pp, gp = points.data_ptr(), grad_out.data_ptr()
+    if plan is None:
+        index = grad_out.get_device()
+        plan, args = _chosen_dimg_plan(N, H, W, C, P, pp % 16, gp % 16, sm_count(index),
+                                       smem_optin(index))
+    else:
+        args = dimg_plan_args(N, H, W, C, P, plan)
+    # the staged kernel writes every element; the global one adds into zeros
+    dfeat = (torch.empty if plan.kernel == "staged" else torch.zeros)(
+        (N, H, W, C), dtype=torch.float32, device=grad_out.device)
+    err = _kernel("point_sample_bwd_dimg")(pp, gp, dfeat.data_ptr(), args, _stream(grad_out))
     if err != 0:
-        raise RuntimeError(f"point_sample_bwd_dimg launch failed: CUDA error {err}")
+        raise RuntimeError(f"point_sample_bwd_dimg ({plan.kernel}) launch failed: CUDA error "
+                           f"{err} (plan {list(args)})")
     dimg_launches += 1
+    dimg_plan_launches[plan.kernel] += 1
     return dfeat
 
 

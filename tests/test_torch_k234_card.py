@@ -40,6 +40,19 @@ POINTS = {  # feat [N, H, W, C] at P points
     "channels_vec": (2, 56, 56, 8, 777),
     "many_images": (70000, 2, 2, 1, 6),  # more images than grid rows
 }
+DIMG = {  # N, H, W, C, P, inputs misaligned, the kernel the plan chooses on an H100 (132
+    # SMs): the image gradient at its launch plan's edges
+    "train": (120, 56, 56, 1, 12544, False, "staged"),  # the criterion's: 2 blocks an image
+    "c4_staged": (16, 32, 32, 4, 1003, False, "staged"),
+    "c3_odd_p": (16, 56, 56, 3, 12545, False, "staged"),  # scalar tail path
+    "misaligned": (16, 56, 56, 1, 2048, True, "staged"),  # points and gradients 4 bytes off
+    "eight_images": (8, 56, 56, 1, 12544, False, "staged"),  # 4 blocks an image
+    "seven_images": (7, 56, 56, 1, 12544, False, "global"),  # too few to fill the card
+    "one_image": (1, 56, 56, 1, 12544, False, "global"),
+    "many_images": (300, 56, 56, 1, 2000, False, "staged"),  # more images than SMs
+    "few_points": (16, 56, 56, 1, 5, False, "staged"),
+    "ragged": (3, 7, 5, 33, 101, False, "global"),  # C > 4: global only
+}
 MISALIGNED = {  # inputs one float off their allocation's 16-byte alignment
     "c1_staged": (4, 56, 56, 1, 2048),
     "c4_global": (2, 56, 56, 4, 1000),
@@ -156,6 +169,74 @@ def test_point_sample_fwdmisaligned(cuda_device, case, which):
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     _close(got, point_sample_plain(feat, pts))
+
+
+def _dimg_plan(n, h, w, c, p, pts, g, optin=None, sms=None):
+    return point_sample_cuda.dimg_launch_plan(
+        n, h, w, c, p, pts.data_ptr(), g.data_ptr(),
+        point_sample_cuda.sm_count(0) if sms is None else sms,
+        point_sample_cuda.smem_optin(0) if optin is None else optin)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("plan,case", [
+    *((plan, case) for case in sorted(DIMG) for plan in ("chosen", "global")),
+    # staged forced where the plan takes global for too few images
+    *(("staged", case) for case in sorted(DIMG) if DIMG[case][3] <= 4
+      and DIMG[case][6] == "global")])
+def test_dimg_plans_match_plain_autograd(cuda_device, case, plan):
+    """The image gradient under the plan's own choice, forced through the
+    global kernel (the plan at an opt-in limit of 0) and, below the images
+    that fill the card, forced through the staged one (the plan for a card
+    of one SM), against autograd of the plain version; each launch counted
+    under its plan."""
+    n, h, w, c, p, misalign, chosen = DIMG[case]
+    feat, pts = point_inputs(n, h, w, c, p, cuda_device, seed=11)
+    g = torch.randn((n, p, c), device=cuda_device)
+    want = _plain_grads(point_sample_plain, (feat, pts), g)[0]
+    if misalign:
+        pts, g = misaligned(pts), misaligned(g)
+    forced = {"chosen": None, "global": lambda: _dimg_plan(n, h, w, c, p, pts, g, optin=0),
+              "staged": lambda: _dimg_plan(n, h, w, c, p, pts, g, sms=1)}[plan]
+    forced = forced and forced()
+    kernel = (forced or _dimg_plan(n, h, w, c, p, pts, g)).kernel
+    assert kernel == (chosen if plan == "chosen" else plan)
+    before = dict(point_sample_cuda.dimg_plan_launches)
+    got = point_sample_cuda.point_sample_dimg_cuda(pts, g, (h, w), plan=forced)
+    assert point_sample_cuda.dimg_plan_launches[kernel] == before[kernel] + 1
+    _close(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("extra,kernel", [(0, "staged"), (1, "global")])
+def test_dimg_at_the_shared_memory_limit(cuda_device, extra, kernel):
+    """An image whose shared memory fills the card's opt-in limit exactly is
+    staged; one element more takes the global kernel; both agree with the
+    plain version."""
+    optin = point_sample_cuda.smem_optin(0)
+    width = max(w for w in range(optin // 4 - 4, optin // 4 + 1)
+                if point_sample_cuda.dimg_smem_bytes(1, w, 1) <= optin) + extra
+    feat, pts = point_inputs(16, 1, width, 1, 3001, cuda_device, seed=12)
+    g = torch.randn((16, 3001, 1), device=cuda_device)
+    assert _dimg_plan(16, 1, width, 1, 3001, pts, g).kernel == kernel
+    _close(point_sample_cuda.point_sample_dimg_cuda(pts, g, (1, width)),
+           _plain_grads(point_sample_plain, (feat, pts), g)[0])
+
+
+@pytest.mark.gpu
+def test_dimg_staged_with_an_inf_gradient(cuda_device):
+    """A gradient holding an inf gives inf at the point's four corners, as
+    the plain version does; the other images and elements agree with it."""
+    feat, pts = point_inputs(16, 56, 56, 1, 2048, cuda_device, seed=14)
+    pts[1, 7] = torch.tensor([10.3 / 56, 20.3 / 56], device=cuda_device)
+    g = torch.randn((16, 2048, 1), device=cuda_device)
+    assert _dimg_plan(16, 56, 56, 1, 2048, pts, g).kernel == "staged"
+    g[1, 7, 0] = float("inf")
+    want = _plain_grads(point_sample_plain, (feat, pts), g)[0]
+    got = point_sample_cuda.point_sample_dimg_cuda(pts, g, (56, 56))
+    finite = torch.isfinite(want)
+    assert int((~finite).sum()) == 4 and torch.equal(torch.isfinite(got), finite)
+    _close(got[finite], want[finite])
 
 
 @pytest.mark.gpu

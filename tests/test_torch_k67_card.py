@@ -20,10 +20,14 @@ from combo_avs_torch.models.meta_arch import semantic_inference
 from combo_avs_torch.ops import gather_cuda, seminf_cuda
 
 SEMINF = {  # N, Q, C, h, w, H, W
-    "s4": (4, 100, 2, 56, 56, 224, 224),
-    "ragged": (3, 7, 5, 5, 9, 13, 31),  # H*W not a multiple of the block
-    "same_size": (2, 3, 8, 6, 6, 6, 6),
-    "one_class": (2, 4, 1, 3, 4, 9, 4),
+    "s4": (4, 100, 2, 56, 56, 224, 224),  # patch 4 x 4
+    "ragged": (3, 7, 5, 5, 9, 13, 31),  # H*W not a multiple of the block; pixel only
+    "same_size": (2, 3, 8, 6, 6, 6, 6),  # a ratio of 1: pixel
+    "one_class": (2, 4, 1, 3, 4, 9, 4),  # ratios 3 and 1: pixel
+    "x3x2": (2, 4, 1, 3, 4, 9, 8),  # patch 2 x 2
+    "x3": (2, 100, 2, 56, 56, 168, 168),  # patch 2 x 2, the last patch of a band cut
+    "x2x8_c5": (3, 9, 5, 7, 6, 14, 48),  # C > 4: 2 x 2
+    "x8_c8": (2, 5, 8, 4, 4, 32, 32),
 }
 
 
@@ -43,15 +47,25 @@ def _close(got, want, tol):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("plan", ["chosen", "pixel"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("case", sorted(SEMINF))
-def test_k7_matches_plain(cuda_device, case, dtype):
+def test_k7_matches_plain(cuda_device, case, dtype, plan):
+    """K7 under the plan's own choice (patch at integer ratios of at least
+    2, else pixel)
+    and forced through the pixel kernel, with the temporal mask off and on;
+    each launch counted under its plan."""
     N, Q, C, h, w, H, W = SEMINF[case]
     cls, mask, tm = seminf_inputs(N, Q, C, h, w, dtype, cuda_device, seed=3)
+    forced = seminf_cuda.pixel_plan(Q, C, H, W) if plan == "pixel" else None
+    kernel = (forced or seminf_cuda.launch_plan(N, Q, C, h, w, H, W)).kernel
+    integer = H % h == 0 and W % w == 0 and min(H // h, W // w) >= 2
+    assert kernel == ("patch" if plan == "chosen" and integer else "pixel")
     for temporal in (None, tm):
-        before = seminf_cuda.launches
-        got = seminf_cuda.seminf_cuda(cls, mask, (H, W), temporal)
-        assert seminf_cuda.launches == before + 1
+        before = (seminf_cuda.launches, seminf_cuda.plan_launches[kernel])
+        got = seminf_cuda.seminf_cuda(cls, mask, (H, W), temporal, plan=forced)
+        assert (seminf_cuda.launches, seminf_cuda.plan_launches[kernel]) == (before[0] + 1,
+                                                                            before[1] + 1)
         want = seminf_cuda.semantic_inference_plain(cls, mask, (H, W), temporal)
         _close(got, want, TOL_FP32 if dtype == torch.float32 else K7_TOL_BF16)
 

@@ -244,6 +244,111 @@ def test_plan_channels_kernel(H, C, feat_ptr, vec, per_block):
     assert (plan.kernel, plan.vec, plan.points_per_block) == ("channels", vec, per_block)
 
 
+OPTIN, SMS = 232448, 132  # an H100's opt-in shared memory per block and SM count
+
+
+@pytest.mark.parametrize("H,W,C,optin,staged", [
+    (56, 56, 1, OPTIN, True),  # the criterion's masks: a 12.5 KB accumulator
+    (56, 56, 3, OPTIN, True),
+    (32, 32, 4, OPTIN, True),
+    (56, 56, 5, OPTIN, False),  # C > 4: the global kernel
+    (7, 5, 33, OPTIN, False),
+    (1, OPTIN // 4, 1, OPTIN, True),  # the shared memory fills the limit exactly
+    (1, OPTIN // 4 + 1, 1, OPTIN, False),  # one element over it
+    (224, 224, 1, OPTIN, True),  # 196 KB
+    (224, 224, 2, OPTIN, False),  # 392 KB
+    (56, 56, 1, 0, False),  # a card that offers no opt-in shared memory
+])
+def test_dimg_plan_stages_exactly_when_the_image_fits(H, W, C, optin, staged):
+    """The image gradient sums an image in shared memory exactly when C <= 4
+    and its fp32 accumulator (4 bytes an element) fits the card's opt-in
+    limit (at enough images to fill the card); everything else takes the
+    global kernel, which adds into a zeroed output with global atomics."""
+    plan = point_sample_cuda.dimg_launch_plan(120, H, W, C, 12544, 0, 0, SMS, optin)
+    assert plan.kernel == ("staged" if staged else "global")
+    if staged:
+        assert plan.smem_bytes == point_sample_cuda.dimg_smem_bytes(H, W, C) <= optin
+        assert plan.smem_bytes >= 4 * H * W * C and plan.smem_bytes % 16 == 0
+    else:
+        assert plan.smem_bytes == 0 and plan.cluster == 1
+
+
+@pytest.mark.parametrize("N,H,W,C,P", [
+    (120, 56, 56, 1, 12544), (1, 56, 56, 1, 12544), (300, 56, 56, 1, 2000),
+    (3, 32, 32, 4, 1003), (5, 56, 56, 3, 12545), (3, 7, 5, 33, 101), (1, 8, 8, 1, 3),
+    (70000, 2, 2, 1, 5), (70000, 2, 2, 5, 5), (2, 8, 8, 1, 300000), (1, 8, 8, 2, 262144),
+    (16, 8, 8, 1, 300000), (8, 8, 8, 2, 262145),
+])
+def test_dimg_plan_grid_covers_every_point_and_image(N, H, W, C, P):
+    """Staged: the cluster's blocks tile [0, P) in runs of a multiple of 4
+    points, no block wholly past P, and the grid rows, looping in steps of the row
+    count, reach every image, N beyond the grid's 65535 rows included.
+    Global: its lanes cover every (image, point) pair."""
+    plan = point_sample_cuda.dimg_launch_plan(N, H, W, C, P, 0, 0, SMS, OPTIN)
+    if plan.kernel == "staged":
+        per = plan.points_per_block
+        assert per % 4 == 0
+        assert plan.cluster * per >= P > (plan.cluster - 1) * per
+        assert plan.grid == (plan.cluster, min(N, point_sample_cuda.GRID_ROWS))
+        assert -(-N // plan.grid[1]) * plan.grid[1] >= N
+    else:
+        blocks, rows = plan.grid
+        assert rows == 1 and plan.cluster == 1 and plan.points_per_block == 0
+        assert blocks * plan.threads >= (N * P) << plan.log2_group > (blocks - 1) * plan.threads
+        assert plan.log2_group == point_sample_cuda._log2_group(C)
+
+
+@pytest.mark.parametrize("N,cluster", [(120, 2), (132, 2), (133, 1), (67, 2), (66, 4),
+                                       (60, 4), (8, 4), (300, 1), (70000, 1)])
+def test_dimg_cluster_fills_the_sms(N, cluster):
+    """Blocks per image: the most of 1, 2 and 4 whose 1024-thread blocks
+    fit one wave of the card's 132 SMs at two an SM (the training shape's
+    120 images: two blocks each), fewer where the points would leave a
+    block with none."""
+    assert point_sample_cuda.dimg_cluster(N, 12544, SMS) == cluster
+    assert point_sample_cuda.dimg_cluster(N, 5, SMS) == min(cluster, 2)
+    assert point_sample_cuda.dimg_cluster(N, 3, SMS) == 1
+    assert point_sample_cuda.dimg_launch_plan(N, 56, 56, 1, 12544, 0, 0, SMS,
+                                              OPTIN).cluster == cluster
+
+
+@pytest.mark.parametrize("N,kernel", [(1, "global"), (4, "global"), (7, "global"),
+                                      (8, "staged"), (12, "staged"), (30, "staged")])
+def test_dimg_plan_takes_global_below_eight_images(N, kernel):
+    """Too few images to fill the card: below 8 images (at 132 SMs) the
+    global kernel, whose atomics spread over every SM, was faster than the
+    staged one at four blocks an image (scripts/bench_point_bwd_plans.py);
+    the two tie at 8."""
+    plan = point_sample_cuda.dimg_launch_plan(N, 56, 56, 1, 12544, 0, 0, SMS, OPTIN)
+    assert plan.kernel == kernel
+    # on a card of twice the SMs, twice the images fill the same share
+    twice = point_sample_cuda.dimg_launch_plan(2 * N, 56, 56, 1, 12544, 0, 0, 2 * SMS, OPTIN)
+    assert twice.kernel == kernel
+
+
+@pytest.mark.parametrize("P,C,points_ptr,grad_ptr,vec", [
+    (12544, 1, 0, 0, True), (12545, 1, 0, 0, False),  # odd P: the second image's points
+    (12546, 3, 0, 0, False),  # P * C not a multiple of 4: an image's gradients misalign
+    (12544, 3, 0, 0, True), (12544, 1, 4, 0, False), (12544, 1, 0, 8, False),
+])
+def test_dimg_plan_vec_only_when_aligned(P, C, points_ptr, grad_ptr, vec):
+    """float4 point and gradient loads only where every image's points and
+    gradients are 16-byte aligned; otherwise the scalar path."""
+    plan = point_sample_cuda.dimg_launch_plan(120, 56, 56, C, P, points_ptr, grad_ptr, SMS,
+                                              OPTIN)
+    assert plan.kernel == "staged" and plan.vec == vec
+
+
+@pytest.mark.parametrize("shape", [(120, 56, 56, 1, 12544), (3, 7, 5, 33, 101)])
+def test_dimg_plan_args(shape):
+    """The C function's int array carries the shape and the plan, in order."""
+    plan = point_sample_cuda.dimg_launch_plan(*shape, 0, 0, SMS, OPTIN)
+    args = list(point_sample_cuda.dimg_plan_args(*shape, plan))
+    assert args == [*shape, point_sample_cuda.DIMG_KERNELS.index(plan.kernel), plan.threads,
+                    plan.cluster, plan.points_per_block, *plan.grid, int(plan.vec),
+                    plan.smem_bytes, plan.log2_group]
+
+
 def c_signature(source: str, name: str) -> list:
     """The parameter types of `extern "C" int name(...)` in csrc/<source>, as
     ctypes types: a void pointer (the stream too) is c_void_p, an int c_int,

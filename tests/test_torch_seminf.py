@@ -101,3 +101,77 @@ def test_kernel_gate():
     assert not seminf_cuda.kernel_takes(2, (56, 56), None)
     with pytest.raises(ValueError, match="CUDA"):
         seminf_cuda.seminf_cuda(torch.zeros(1, 2, 2), torch.zeros(1, 2, 4, 4), (8, 8))
+
+
+@pytest.mark.parametrize("h,w,H,W,kernel,patch", [
+    (56, 56, 224, 224, "patch", 4),  # the eval tail's 4x
+    (56, 56, 168, 168, "patch", 2),  # 3x: the largest side within the ratio
+    (56, 56, 112, 224, "patch", 2),
+    (7, 6, 14, 48, "patch", 2),
+    (28, 28, 56, 56, "patch", 2),  # 2x: the smallest ratio a patch takes
+    (3, 4, 9, 8, "patch", 2),
+    (56, 56, 448, 448, "patch", 4),
+    (6, 6, 6, 6, "pixel", 1),  # the same size: a ratio of 1
+    (3, 4, 9, 4, "pixel", 1),  # ratios 3 and 1
+    (56, 56, 56, 224, "pixel", 1),  # ratios 1 and 4
+    (5, 9, 13, 31, "pixel", 1),  # ragged
+    (56, 56, 225, 224, "pixel", 1),  # one row more than 4x
+    (56, 56, 384, 384, "pixel", 1),  # a TTA size: 384 / 56 is not an integer
+    (8, 8, 20, 28, "pixel", 1),
+])
+def test_launch_plan_takes_patch_exactly_at_integer_ratios(h, w, H, W, kernel, patch):
+    """K7 computes patches exactly when H / h and W / w are integers of at
+    least 2, with the largest square patch within both ratios; any other
+    upsampling takes the pixel kernel, one thread per output pixel."""
+    plan = seminf_cuda.launch_plan(20, 100, 2, h, w, H, W)
+    assert (plan.kernel, plan.patch) == (kernel, patch)
+    assert plan.smem_bytes == 100 * 2 * 4
+    if kernel == "pixel":
+        assert plan == seminf_cuda.pixel_plan(100, 2, H, W)
+        assert plan.blocks_per_frame * plan.threads >= H * W
+
+
+@pytest.mark.parametrize("C,patch", [(1, 4), (2, 4), (4, 4), (5, 2), (8, 2)])
+def test_launch_plan_patch_side_by_classes(C, patch):
+    """Above four classes a 4 x 4 patch's accumulators would spill: 2 x 2."""
+    assert seminf_cuda.launch_plan(20, 100, C, 56, 56, 224, 224).patch == patch
+
+
+@pytest.mark.parametrize("h,w,H,W,side", [(56, 56, 224, 224, 4), (56, 56, 168, 168, 2),
+                                          (7, 6, 14, 48, 2), (3, 4, 9, 8, 2),
+                                          (5, 5, 40, 40, 4)])
+def test_patch_grid_covers_every_pixel_once(h, w, H, W, side):
+    """The patches of a frame tile its H x W output: every pixel falls in
+    exactly one patch's in-band rows and columns, and the plan's blocks
+    cover every patch."""
+    rows, cols = seminf_cuda.patch_grid(h, w, H, W, side)
+    ry, rx = H // h, W // w
+    py, px = -(-ry // side), -(-rx // side)
+
+    def span(index, per, r, n):
+        band, sub = divmod(index, per)
+        lo = r * (band - 1) + r // 2 + sub * side
+        return range(max(lo, 0), min(lo + side, r * band + r // 2, n))
+
+    ys = [y for pr in range(rows) for y in span(pr, py, ry, H)]
+    xs = [x for pc in range(cols) for x in span(pc, px, rx, W)]
+    assert sorted(ys) == list(range(H)) and sorted(xs) == list(range(W))
+    plan = seminf_cuda.launch_plan(2, 3, 2, h, w, H, W)
+    assert plan.patch == side and plan.blocks_per_frame * plan.threads >= rows * cols
+
+
+def test_argtypes_match_the_c_signature():
+    """ctypes passes exactly the C function's arguments: a count or a type
+    off would shift the stream into an int (the kernel cannot run here)."""
+    from tests.test_torch_point_sample import c_signature
+
+    assert seminf_cuda.ARGTYPES == c_signature(seminf_cuda.SOURCE, "seminf_fwd")
+
+
+@pytest.mark.parametrize("h,w,H,W,code,patch", [(56, 56, 224, 224, 1, 4),
+                                                 (5, 9, 13, 31, 0, 1)])
+def test_plan_args(h, w, H, W, code, patch):
+    """The C function's int array carries the shape and the plan, in order."""
+    plan = seminf_cuda.launch_plan(20, 100, 2, h, w, H, W)
+    assert list(seminf_cuda.plan_args(20, 100, 2, h, w, H, W, True, plan)) == [
+        20, 100, 2, h, w, H, W, 1, code, plan.threads, patch, plan.blocks_per_frame, 800]
