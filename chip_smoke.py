@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's paths, COMBO-R50 S4 inference, S4 training and
-the S4 evaluation entry point, on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's paths, COMBO-R50 S4 inference, S4 training, and
+the S4 evaluation and training entry points, on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--kernels-only]
 
@@ -44,13 +44,24 @@ non-zero and never prints its last line:
      finite losses, the frozen tower and FrozenBN unchanged, the decoder
      changed, and each kernel launched as often as the step implies (K4's
      image gradient through its staged plan);
-  7. the same weights on the card (TF32 off) against the CPU (plain path):
+  7. the training entry point: `python -m combo_avs_torch.train_net` (its
+     `main`, in this process) on the shipped
+     `combo_avs_tpu/configs/avs_s4/COMBO_R50_bs8_90k.yaml` at full width and
+     with the full augmentation, over a synthetic S4 tree (16 train videos,
+     8 val), 6 iterations with an evaluation and a step checkpoint every 3,
+     then resumed to 8: every iteration logged (the resumed run 7 and 8
+     only), finite losses, step_3, step_6 and a `model_best.pth` that loads,
+     the mIoU in metrics.json, and each kernel launched as often as the
+     steps and the evaluation batches imply, through the training phase's
+     plans; its s/iter and data_time per iteration beside the bare step's,
+     and the evaluation's videos/s;
+  8. the same weights on the card (TF32 off) against the CPU (plain path):
      the inference forward on one 224^2 frame, and the training losses and
      gradients on 1 video x 5 frames x 128^2 with the same injected draws;
-  8. one training step at 12500 points, whose 37500 candidates the
+  9. one training step at 12500 points, whose 37500 candidates the
      stratified selection does not divide, so that K6 runs once per decoder
      output;
-  9. a JSON line of per-kernel results (`ms` device ms, `call_ms` call ms),
+  10. a JSON line of per-kernel results (`ms` device ms, `call_ms` call ms),
      then the final JSON status line.
 Without a CUDA device it exits non-zero at once.
 """
@@ -58,6 +69,7 @@ Without a CUDA device it exits non-zero at once.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -65,6 +77,7 @@ import time
 import numpy as np
 import torch
 
+REPO = os.path.dirname(os.path.abspath(__file__))
 # main-path shapes: the eval batch of bench.py's default mode
 B, T, SIZE = 4, 5, 224
 NUM_BATCHES = 3
@@ -157,6 +170,11 @@ K7_TOL_BF16 = 8e-3
 K6_SHAPE = dict(G=TRAIN_M, NS=3 * NUM_POINTS, P=3 * NUM_POINTS // 4)
 # the eval entry point: a synthetic S4 val split, evaluated at batch 4
 EVAL_VIDEOS, EVAL_BATCH = 16, 4
+# the training entry point: two distinct batches of 8 train videos, 8 val
+# videos (one a batch, as the trainer evaluates), 6 iterations with an
+# evaluation and a checkpoint every 3, then resumed to 8
+ENTRY_TRAIN_VIDEOS, ENTRY_VAL_VIDEOS = 2 * TRAIN_B, 8
+ENTRY_ITERS, ENTRY_PERIOD, ENTRY_RESUME_TO = 6, 3, 8
 # K7 against the plain tail on the same forward (fp32): the maps differ by
 # fp32 rounding (1e-5 of max |plain|), which can flip a pixel lying within
 # that of the 0.5 threshold; the metrics, rounded to 4 decimals, may move by
@@ -851,6 +869,7 @@ def reset_counts():
 
     deform_attn_cuda.launches = deform_attn_cuda.bwd_launches = 0
     deform_attn_cuda.fwd_plan_launches.update(dict.fromkeys(deform_attn_cuda.fwd_plan_launches, 0))
+    deform_attn_cuda.bwd_plan_launches.update(dict.fromkeys(deform_attn_cuda.bwd_plan_launches, 0))
     point_sample_cuda.fwd_launches = point_sample_cuda.dimg_launches = 0
     point_sample_cuda.dxy_launches = 0
     point_sample_cuda.dimg_plan_launches.update(dict.fromkeys(point_sample_cuda.dimg_plan_launches,
@@ -1094,6 +1113,131 @@ def phase_train(model, smi: str) -> dict:
             "dimg_plans": dimg_plans}
 
 
+def _plans() -> dict:
+    """The per-plan launch counts of K1, K2, K4 dimg and K7."""
+    from combo_avs_torch.ops import deform_attn_cuda, point_sample_cuda, seminf_cuda
+
+    return {"k1": dict(deform_attn_cuda.fwd_plan_launches),
+            "k2": dict(deform_attn_cuda.bwd_plan_launches),
+            "k4_dimg": dict(point_sample_cuda.dimg_plan_launches),
+            "k7": dict(seminf_cuda.plan_launches)}
+
+
+def phase_train_entry(smi: str, bare_s_per_step: float) -> dict:
+    """The S4 training entry point at full width: `train_net.main` on the
+    shipped COMBO-R50 S4 config over a synthetic tree (16 train videos, two
+    distinct batches of 8; 8 val videos), 6 iterations with an evaluation and
+    a step checkpoint every 3, then `--resume --max-iter 8`. Every iteration
+    is logged; the resumed run logs 7 and 8 only; the losses are finite;
+    step_3, step_6 and a `model_best.pth` that loads are written, and
+    metrics.json holds the mIoU; each kernel launches as often as the steps
+    and the eval batches imply, through the plans the training phase
+    takes (K1 staged, K2 level_slice, K4 dimg staged, K7 patch); and the
+    run imports none of jax, flax, yaml, cv2, tensorflow or the JAX
+    package."""
+    import tempfile
+
+    from combo_avs_torch import train_net
+    from combo_avs_torch.data.synth import make_s4
+    from combo_avs_torch.models.meta_arch import MaskFormer
+    from combo_avs_torch.train.checkpoint import load_reference_checkpoint
+
+    cfg_file = os.path.join(REPO, "combo_avs_tpu", "configs", "avs_s4", "COMBO_R50_bs8_90k.yaml")
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        make_s4(tmp, ENTRY_TRAIN_VIDEOS, ENTRY_VAL_VIDEOS, size=SIZE)
+        log(f"[train-entry] synthetic S4 tree: {ENTRY_TRAIN_VIDEOS} train and {ENTRY_VAL_VIDEOS} "
+            f"val videos x {T} frames x {SIZE}^2 in {time.perf_counter() - t0:.1f} s")
+        out_dir = os.path.join(tmp, "out")
+        common = ["--config-file", cfg_file, "--datasets-root", tmp, "--log-every", "1"]
+        opts = ["OUTPUT_DIR", out_dir, "SOLVER.MAX_ITER", str(ENTRY_ITERS), "TEST.EVAL_PERIOD",
+                str(ENTRY_PERIOD), "SOLVER.CHECKPOINT_PERIOD", str(ENTRY_PERIOD)]
+        runs = (("first", common + opts, range(1, ENTRY_ITERS + 1), ENTRY_ITERS // ENTRY_PERIOD),
+                ("resumed", common + ["--resume", "--max-iter", str(ENTRY_RESUME_TO)] + opts,
+                 range(ENTRY_ITERS + 1, ENTRY_RESUME_TO + 1), 0))
+        rows_seen = 0
+        for name, argv, iters, evals in runs:
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            trainer = train_net.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            loaded = [m for m in ("jax", "flax", "yaml", "cv2", "combo_avs_tpu", "tensorflow")
+                      if m in sys.modules]
+            if loaded:
+                raise AssertionError(f"[train-entry] {name}: train_net.main imported {loaded}")
+            counts, plans = read_counts(), _plans()
+            with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+                rows = [json.loads(line) for line in f][rows_seen:]
+            rows_seen += len(rows)
+            steps = [r for r in rows if "total_loss" in r]
+            if [r["iter"] for r in steps] != list(iters):
+                raise AssertionError(f"[train-entry] {name}: logged iterations "
+                                     f"{[r['iter'] for r in steps]}, expected {list(iters)}")
+            if not all(np.isfinite(r["total_loss"]) for r in steps):
+                raise AssertionError(f"[train-entry] {name}: losses {steps}")
+            n, batches = len(steps), evals * ENTRY_VAL_VIDEOS
+            want = {k: v * n for k, v in TRAIN_LAUNCHES.items()}
+            want["k1"] += 6 * batches
+            want["k7"] += batches
+            want_plans = {"k1": {"staged": want["k1"], "global": 0},
+                          "k2": {"level_slice": want["k2"], "global": 0},
+                          "k4_dimg": {"staged": want["k4_dimg"], "global": 0},
+                          "k7": {"patch": want["k7"], "pixel": 0}}
+            if counts != want or plans != want_plans:
+                raise AssertionError(f"[train-entry] {name}: launches {counts} by plan {plans}, "
+                                     f"expected {want} by plan {want_plans} ({n} steps, "
+                                     f"{batches} eval batches)")
+            evals_done = [r for r in rows if "mIoU" in r]
+            if len(evals_done) != evals:
+                raise AssertionError(f"[train-entry] {name}: {len(evals_done)} evaluations, "
+                                     f"expected {evals}")
+            for r in steps:
+                log(f"[train-entry] {name}: iter {r['iter']}: total_loss {r['total_loss']:.6f}, "
+                    f"{r['s_per_iter']:.4f} s/iter, data_time {r['data_time']:.4f} s/iter "
+                    f"(bare step {bare_s_per_step:.4f} s/step) on {smi}")
+            timing = trainer.eval_timing.get("avss4_sem_seg_val")
+            for r in evals_done:
+                log(f"[train-entry] {name}: eval @ {r['iter']}: mIoU {r['mIoU']:.4f}, "
+                    f"f_score {r['f_score']:.4f}")
+            if timing:
+                log(f"[train-entry] {name}: last eval {timing['videos']} videos in "
+                    f"{timing['total_s']:.3f} s (data {timing['data_s']:.3f}, compute "
+                    f"{timing['compute_s']:.3f}, eval {timing['eval_s']:.3f}): "
+                    f"{timing['videos'] / timing['total_s']:.2f} videos/s on {smi}")
+            log(f"[train-entry] {name}: {wall:.1f} s wall; launches {counts} by plan {plans}")
+            out[name] = {"launches": counts, "plans": plans, "rows": steps, "evals": evals_done,
+                         "eval_timing": timing, "wall_s": wall}
+            del trainer
+            torch.cuda.empty_cache()
+        names = set(os.listdir(out_dir))
+        need = {f"step_{ENTRY_PERIOD}", f"step_{ENTRY_ITERS}", f"step_{ENTRY_RESUME_TO}",
+                "model_best.pth", "metrics.json"}
+        if not need <= names:
+            raise AssertionError(f"[train-entry] {sorted(need - names)} missing in {sorted(names)}")
+        best = MaskFormer()
+        load_reference_checkpoint(best, os.path.join(out_dir, "model_best.pth"))
+        del best
+        with open(os.path.join(out_dir, "metrics.json")) as f:
+            if not any("sem_seg/mIoU" in json.loads(line) for line in f):
+                raise AssertionError("[train-entry] metrics.json holds no sem_seg/mIoU row")
+    torch.cuda.empty_cache()
+    steps = out["first"]["rows"] + out["resumed"]["rows"]
+    s_iter = [r["s_per_iter"] for r in steps[1:]]
+    d_iter = [r["data_time"] for r in steps[1:]]
+    log(f"[train-entry] loop after the first iteration: median {np.median(s_iter):.4f} s/iter, "
+        f"data_time median {np.median(d_iter):.4f} s/iter, against the bare step's "
+        f"{bare_s_per_step:.4f} s/step; {sorted(names)} written; model_best.pth loads; "
+        f"on {smi}")
+    out["launches"] = {k: out["first"]["launches"][k] + out["resumed"]["launches"][k]
+                       for k in out["first"]["launches"]}
+    out["s_per_iter_median"], out["data_time_median"] = float(np.median(s_iter)), \
+        float(np.median(d_iter))
+    return out
+
+
 def phase_card_vs_cpu(model) -> None:
     from combo_avs_torch.models.meta_arch import MaskFormer
 
@@ -1332,12 +1476,13 @@ def main(argv=None) -> int:
     sl = phase_slice(model, smi)
     ee = phase_eval_entry(model, smi)
     tr = phase_train(model, smi)
+    te = phase_train_entry(smi, tr["s_per_step"])
     phase_card_vs_cpu(model)
     phase_train_card_vs_cpu(model)
     # last, so that the card-vs-CPU phases see the weights of the 4 steps above
     tf = phase_train_fallback(model)
 
-    ev, tl, fb = sl["launches"], tr["launches"], tf["launches"]
+    ev, tl, fb, tn = sl["launches"], tr["launches"], tf["launches"], te["launches"]
     entry = {k: ee["fp32"]["launches"][k] + ee["bf16"]["launches"][k] for k in ("k1", "k7")}
     fwd = ps["fwd"]
     per_layer = {k: sum(s[k] for s in fwd) for k in ("ms", "call_ms", "host_us", "plain_ms",
@@ -1350,7 +1495,8 @@ def main(argv=None) -> int:
     kernels = [
         kernel_entry("ms_deform_attn_fwd", "combo_avs_torch/csrc/ms_deform_attn_fwd.cu",
                      REPLACES["k1"], {"eval": ev["k1"], "eval_entry": entry["k1"],
-                                       "train": tl["k1"], "train_fallback": fb["k1"]}, k1["fp32"],
+                                       "train": tl["k1"], "train_entry": tn["k1"],
+                                       "train_fallback": fb["k1"]}, k1["fp32"],
                      shape="value [20,1029,8,32] fp32", plan=k1["fp32"]["chosen"],
                      eval_launches_by_plan=sl["k1_plans"],
                      max_abs_err_bf16=k1["bf16"]["max_abs_err"],
@@ -1361,14 +1507,14 @@ def main(argv=None) -> int:
                                for name in ("fp32", "bf16", "train_fp32", "train_bf16")}),
         kernel_entry("ms_deform_attn_bwd", "combo_avs_torch/csrc/ms_deform_attn_bwd.cu",
                      REPLACES["k2"], {"eval": ev["k2"], "train": tl["k2"],
-                                       "train_fallback": fb["k2"]},
+                                       "train_entry": tn["k2"], "train_fallback": fb["k2"]},
                      k2["level_slice"],
                      shape="value [40,1029,8,32] fp32", plan="level_slice",
                      **{f"global_{k}": k2["global"][k] for k in ("max_abs_err", "ms", "call_ms",
                                                                  "host_us", "device_source")}),
         kernel_entry("point_sample_fwd", "combo_avs_torch/csrc/point_sample_fwd.cu",
                      REPLACES["k3"], {"eval": ev["k3"], "train": tl["k3"],
-                                       "train_fallback": fb["k3"]},
+                                       "train_entry": tn["k3"], "train_fallback": fb["k3"]},
                      dict(per_layer, max_abs_err=max(s["max_abs_err"] for s in fwd),
                           bound_by="bytes" if per_layer["bytes"] / PEAK_BYTES_PER_S
                           >= per_layer["flops"] / PEAK_FP32_PER_S else "operations"),
@@ -1379,6 +1525,7 @@ def main(argv=None) -> int:
                             for s in fwd]),
         kernel_entry("point_sample_bwd_dimg", "combo_avs_torch/csrc/point_sample_bwd.cu",
                      REPLACES["k4"], {"eval": ev["k4_dimg"], "train": tl["k4_dimg"],
+                                       "train_entry": tn["k4_dimg"],
                                        "train_fallback": fb["k4_dimg"]}, ps["dimg"],
                      shape="dout [120,12544,1] into [120,56,56,1]", plan="staged",
                      train_launches_by_plan=tr["dimg_plans"],
@@ -1387,11 +1534,12 @@ def main(argv=None) -> int:
                         for k in ("max_abs_err", "ms", "call_ms", "host_us", "device_source")},
                      also_replaces=REPLACES["k4_dxy"],
                      dxy_launches={"eval": ev["k4_dxy"], "train": tl["k4_dxy"],
-                                   "train_fallback": fb["k4_dxy"]},
+                                   "train_entry": tn["k4_dxy"], "train_fallback": fb["k4_dxy"]},
                      **{f"dxy_{k}": ps["dxy"][k] for k in ("max_abs_err", *TIMING_KEYS,
                                                            "bound_ms", "bound_by")}),
         kernel_entry("seminf_fwd", "combo_avs_torch/csrc/seminf_fwd.cu", REPLACES["k7"],
-                     {"eval": ev["k7"], "eval_entry": entry["k7"], "train": tl["k7"]}, k7["fp32"],
+                     {"eval": ev["k7"], "eval_entry": entry["k7"], "train": tl["k7"],
+                      "train_entry": tn["k7"]}, k7["fp32"],
                      shape="mask [20,100,56,56] fp32 -> [20,2,224,224]", plan="patch",
                      plan_detail=k7["fp32"]["plan"], eval_launches_by_plan=sl["k7_plans"],
                      resize_ms=k7["fp32"]["resize_ms"],
@@ -1403,12 +1551,18 @@ def main(argv=None) -> int:
                         for name, sfx in (("fp32", ""), ("bf16", "_bf16"))
                         for k in ("max_abs_err", "ms", "call_ms", "host_us")}),
         kernel_entry("gather_points", "combo_avs_torch/csrc/gather.cu", REPLACES["k6"],
-                     {"eval": ev["k6"], "train": tl["k6"], "train_fallback": fb["k6"]}, k6,
+                     {"eval": ev["k6"], "train": tl["k6"], "train_entry": tn["k6"],
+                      "train_fallback": fb["k6"]}, k6,
                      shape="src [120,37632,2] fp32, idx [120,9408] int64"),
     ]
     log(json.dumps({"train": {"s_per_step": tr["s_per_step"], "step_times_s": tr["times"],
                               "max_memory_allocated": tr["peak_bytes"],
                               "shape": f"{TRAIN_B}x{T}x{SIZE}^2 K={TRAIN_K} fp32"},
+                    "train_entry": {"s_per_iter_median": te["s_per_iter_median"],
+                                    "data_time_median": te["data_time_median"],
+                                    "rows": te["first"]["rows"] + te["resumed"]["rows"],
+                                    "evals": te["first"]["evals"],
+                                    "eval_timing": te["first"]["eval_timing"]},
                     "eval_fps": sl["fps"], "card": smi,
                     "slower_than_library": [r[0] for r in ranked if r[3] > 1],
                     "eval_entry": {k: {"metrics": v["metrics"], "timing": v["timing"]}

@@ -1,14 +1,20 @@
-"""The eval loader: batched, bucketed by frame count, mapped on a thread
-pool.
+"""Loaders: batched, bucketed by frame count, mapped on a thread pool.
 
-Port of `combo_avs_tpu/data/loader.py::eval_loader`. Videos are grouped by
-frame count so that every batch has one shape (AVSS mixes 5- and 10-frame
-videos); within a batch the records are mapped on a thread pool, which the
-generator shuts down when it is exhausted or closed.
+Port of `combo_avs_tpu/data/loader.py`. Videos are grouped by frame count so
+that every batch has one shape (AVSS mixes 5- and 10-frame videos).
+
+* `TrainLoader`: the infinite shuffled training stream (ref: d2's
+  TrainingSampler, train_net.py:111-123), mapped on `num_workers` threads
+  and prefetched `prefetch` batches ahead on a thread of its own.
+* `eval_loader`: one pass; within a batch the records are mapped on a
+  thread pool, which the generator shuts down when it is exhausted or
+  closed.
 """
 
 from __future__ import annotations
 
+import queue
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, Iterator, List, Tuple
 
@@ -20,6 +26,103 @@ NUM_WORKERS = 4
 
 def _stack_batch(samples: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
     return {k: np.stack([s[k] for s in samples]) for k in samples[0]}
+
+
+class TrainLoader:
+    """Infinite shuffled loader over per-video records; `next()` gives a
+    stacked batch.
+
+    The order is the JAX package's `TrainLoader`'s for the same seed: from
+    RandomState(seed), a bucket drawn in proportion to its size, then a
+    batch from that bucket's stream of permutations (no video twice within
+    a permutation); with `num_shards` processes each takes its slice of the
+    global batch. The mapper is called as `mapper(record, n)`, where n
+    counts the loader's calls (batch by batch, slot by slot): the draws of a
+    video's transform hang on its place in the stream, not on which worker
+    thread gets to it first, so any `num_workers` gives the same batches
+    (the JAX mapper counts calls as they start, which fixes the order only
+    with one worker).
+
+    A failure in the mapper is raised by the next `next()`. `close()` stops
+    the prefetch thread and shuts the worker pool down."""
+
+    def __init__(self, records: List[dict], mapper: Callable[[dict, int], Dict[str, np.ndarray]],
+                 batch_size: int, seed: int = 0, num_workers: int = 4, prefetch: int = 2,
+                 shard_index: int = 0, num_shards: int = 1):
+        if not records:
+            raise ValueError("no records to load")
+        self.mapper = mapper
+        self.batch_size = batch_size
+        self.rng = np.random.RandomState(seed)
+        self.shard_index, self.num_shards = shard_index, num_shards
+        self.buckets: Dict[int, List[dict]] = {}
+        for r in records:
+            self.buckets.setdefault(r["num_frames"], []).append(r)
+        self._pool = ThreadPoolExecutor(max(1, num_workers))
+        self._queue: queue.Queue = queue.Queue(maxsize=max(1, prefetch))
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread.start()
+
+    def _indices(self) -> Iterator[List[dict]]:
+        streams = {k: iter(()) for k in self.buckets}
+        sizes = {k: len(v) for k, v in self.buckets.items()}
+        total = sum(sizes.values())
+        while True:
+            r = self.rng.rand() * total
+            acc = 0
+            for k, n in sizes.items():
+                acc += n
+                if r <= acc:
+                    break
+            bucket = self.buckets[k]
+            idx: List[int] = []
+            while len(idx) < self.batch_size:
+                for i in streams[k]:
+                    idx.append(i)
+                    if len(idx) == self.batch_size:
+                        break
+                else:
+                    streams[k] = iter(self.rng.permutation(len(bucket)))
+            per = self.batch_size // self.num_shards
+            yield [bucket[i] for i in idx[self.shard_index * per:(self.shard_index + 1) * per]]
+
+    def _put(self, item) -> bool:
+        while not self._stop.is_set():
+            try:
+                self._queue.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                pass
+        return False
+
+    def _worker(self) -> None:
+        n = 0
+        try:
+            for recs in self._indices():
+                if self._stop.is_set():
+                    return
+                numbers = range(n, n + len(recs))
+                n += len(recs)
+                samples = list(self._pool.map(self.mapper, recs, numbers))
+                if not self._put(_stack_batch(samples)):
+                    return
+        except BaseException as e:  # raised again by __next__
+            self._put(e)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> Dict[str, np.ndarray]:
+        item = self._queue.get()
+        if isinstance(item, BaseException):
+            raise item
+        return item
+
+    def close(self) -> None:
+        self._stop.set()
+        self._thread.join()
+        self._pool.shutdown(wait=True, cancel_futures=True)
 
 
 def eval_loader(records: List[dict], mapper: Callable[[dict], Dict[str, np.ndarray]],

@@ -229,11 +229,18 @@ class SetCriterion:
         return losses
 
 
-def build_weight_dict(dec_layers: int = 10, class_weight: float = 2.0, mask_weight: float = 5.0,
-                      dice_weight: float = 5.0, cosine_weight: float = 10.0) -> Dict[str, float]:
-    """Loss name -> weight, with a copy per aux layer. `dec_layers` is the
-    config's DEC_LAYERS (the final prediction plus DEC_LAYERS - 1 aux ones).
-    S4 defaults: combo_avs_tpu/configs/avs_s4/COMBO_R50_bs8_90k.yaml:52-55,65."""
+def build_weight_dict(cfg=None, dec_layers: int = 10, class_weight: float = 2.0,
+                      mask_weight: float = 5.0, dice_weight: float = 5.0,
+                      cosine_weight: float = 10.0) -> Dict[str, float]:
+    """Loss name -> weight, with a copy per aux layer (ref:
+    maskformer_model.py:192-238). `dec_layers` is the config's DEC_LAYERS
+    (the final prediction plus DEC_LAYERS - 1 aux ones). With a config the
+    numbers are its MODEL.MASK_FORMER's, else the keywords' (S4 defaults:
+    combo_avs_tpu/configs/avs_s4/COMBO_R50_bs8_90k.yaml:52-55,65)."""
+    if cfg is not None:
+        mf = cfg.MODEL.MASK_FORMER
+        dec_layers, class_weight, mask_weight, dice_weight, cosine_weight = (
+            mf.DEC_LAYERS, mf.CLASS_WEIGHT, mf.MASK_WEIGHT, mf.DICE_WEIGHT, mf.COSINE_WEIGHT)
     base = {"loss_ce": class_weight, "loss_mask": mask_weight, "loss_dice": dice_weight}
     out = dict(base)
     for i in range(dec_layers - 1):
@@ -243,6 +250,21 @@ def build_weight_dict(dec_layers: int = 10, class_weight: float = 2.0, mask_weig
         for i in range(dec_layers - 1):
             out[f"loss_cosine_{i}"] = cosine_weight
     return out
+
+
+def build_criterion(cfg) -> SetCriterion:
+    """The criterion a config describes (combo_avs_tpu/train/trainer.py:
+    84-101): matcher costs and point counts from MODEL.MASK_FORMER, the
+    cosine loss over 5 frames as the reference always takes it (ref:
+    criterion.py:282-286)."""
+    mf = cfg.MODEL.MASK_FORMER
+    matcher = HungarianMatcher(cost_class=mf.CLASS_WEIGHT, cost_mask=mf.MASK_WEIGHT,
+                               cost_dice=mf.DICE_WEIGHT, num_points=mf.TRAIN_NUM_POINTS)
+    return SetCriterion(num_classes=cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES, matcher=matcher,
+                        eos_coef=mf.NO_OBJECT_WEIGHT, num_points=mf.TRAIN_NUM_POINTS,
+                        oversample_ratio=mf.OVERSAMPLE_RATIO,
+                        importance_sample_ratio=mf.IMPORTANCE_SAMPLE_RATIO, cosine_n_frame=5,
+                        exact_topk=mf.get("EXACT_TOPK_POINTS", False))
 
 
 def total_loss(losses: Dict[str, torch.Tensor], weight_dict: Dict[str, float]) -> torch.Tensor:

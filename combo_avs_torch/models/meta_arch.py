@@ -141,3 +141,90 @@ def semantic_inference(
         return seminf_cuda.seminf_cuda(cls, mask_pred, out_size, temporal_mask)
     return seminf_cuda.semantic_inference_plain(cls, mask_pred, out_size,
                                                 temporal_mask).float()
+
+
+# what the port builds, by config key: any other value raises (the JAX
+# package's `build_model` takes more, combo_avs_tpu/models/meta_arch.py:
+# 213-250)
+_BUILDS = {
+    "META_ARCHITECTURE": ("MaskFormer",),
+    "BACKBONE.NAME": ("build_resnet_backbone", "tiny_resnet"),
+    "AUDIO.FREEZE_AUDIO_EXTRACTOR": (True,),
+    "PRE_SAM.USE_PRE_SAM": (True,),
+    "FUSE_CONFIG.FUSION_STEP": ("late",),
+    "FUSE_CONFIG.TYPE": ("MHA-B",),
+    "FUSE_CONFIG.FUSED_BACKBONE": (["res2"], ("res2",)),
+    "FUSE_CONFIG.QUERIES_FUSE_TYPE": ("add",),
+    "SEM_SEG_HEAD.NAME": ("MaskFormerHead",),
+    "SEM_SEG_HEAD.PIXEL_DECODER_NAME": ("MSDeformAttnPixelDecoder",),
+    "SEM_SEG_HEAD.NORM": ("GN",),
+    "SEM_SEG_HEAD.COMMON_STRIDE": (4,),
+    "SEM_SEG_HEAD.DEFORMABLE_TRANSFORMER_ENCODER_IN_FEATURES": (["res3", "res4", "res5"],
+                                                               ("res3", "res4", "res5")),
+    "SEM_SEG_HEAD.DEFORMABLE_TRANSFORMER_ENCODER_N_POINTS": (4,),
+    "MASK_FORMER.TRANSFORMER_DECODER_NAME": ("MultiScaleMaskedTransformerDecoder",),
+    "MASK_FORMER.PRE_NORM": (False,),
+    "MASK_FORMER.ENFORCE_INPUT_PROJ": (False,),
+}
+
+
+def _cfg_get(node, dotted: str):
+    for part in dotted.split("."):
+        node = node[part]
+    return node
+
+
+def build_model(cfg, device: Optional[torch.device | str] = None) -> MaskFormer:
+    """The MaskFormer a config describes (the key surface of
+    combo_avs_tpu/models/meta_arch.py::build_model, ref:
+    maskformer_model.py:101-272 from_config), on `device`, else on
+    MODEL.DEVICE ("cuda": the current CUDA device, raising without one).
+    Raises NotImplementedError, naming the key and its value, for a setting
+    the port does not build yet (the PVT backbone, early fusion, fusion types
+    other than MHA-B, no pre-SAM tower, ...)."""
+    m = cfg.MODEL
+    for key, allowed in _BUILDS.items():
+        value = _cfg_get(m, key)
+        if value not in allowed:
+            raise NotImplementedError(f"MODEL.{key} = {value!r} is not ported yet "
+                                      f"(the port builds {allowed[0]!r})")
+    checks = {
+        "PIXEL_MEAN": (tuple(m.PIXEL_MEAN), PIXEL_MEAN),
+        "PIXEL_STD": (tuple(m.PIXEL_STD), PIXEL_STD),
+        "FUSE_CONFIG.FUSED_BACKBONE_DIM": (list(m.FUSE_CONFIG.FUSED_BACKBONE_DIM),
+                                           [m.SEM_SEG_HEAD.MASK_DIM]),
+    }
+    if m.BACKBONE.NAME == "build_resnet_backbone":
+        checks.update({f"RESNETS.{k}": (m.RESNETS[k], v) for k, v in (
+            ("DEPTH", 50), ("STEM_OUT_CHANNELS", 64), ("RES2_OUT_CHANNELS", 256),
+            ("STRIDE_IN_1X1", False), ("NORM", "FrozenBN"))})
+    for key, (value, want) in checks.items():
+        if value != want:
+            raise NotImplementedError(f"MODEL.{key} = {value!r} is not ported yet "
+                                      f"(the port builds {want!r})")
+    if m.MASK_FORMER.COSINE_WEIGHT <= 0:
+        raise NotImplementedError(f"MODEL.MASK_FORMER.COSINE_WEIGHT = "
+                                  f"{m.MASK_FORMER.COSINE_WEIGHT!r}: the decoder without the "
+                                  "cosine loss's outputs is not ported yet")
+    if device is None:
+        device = m.get("DEVICE", "cuda")
+    if str(device) == "cuda":
+        device = None  # the current CUDA device
+    # ref: maskformer_model.py:168-171 gives the add fusion HIDDEN_DIM
+    return MaskFormer(
+        backbone_name=m.BACKBONE.NAME,
+        num_classes=m.SEM_SEG_HEAD.NUM_CLASSES,
+        num_queries=m.MASK_FORMER.NUM_OBJECT_QUERIES,
+        hidden_dim=m.MASK_FORMER.HIDDEN_DIM,
+        nheads=m.MASK_FORMER.NHEADS,
+        dim_feedforward=m.MASK_FORMER.DIM_FEEDFORWARD,
+        dec_layers=m.MASK_FORMER.DEC_LAYERS - 1,
+        enc_layers=m.SEM_SEG_HEAD.TRANSFORMER_ENC_LAYERS,
+        mask_dim=m.SEM_SEG_HEAD.MASK_DIM,
+        conv_dim=m.SEM_SEG_HEAD.CONVS_DIM,
+        audio_dim=m.FUSE_CONFIG.AUDIO_DIM,
+        audio_out_dim=m.MASK_FORMER.HIDDEN_DIM,
+        pre_sam_dim=tuple(m.PRE_SAM.PRE_SAM_DIM),
+        vggish_width=m.AUDIO.get("WIDTH_MULT", 1.0),
+        device=default_device(device),
+    )

@@ -19,9 +19,10 @@ the forward, its SM count), made once per shape, and the C functions only
 execute them.
 
 `launches` and `bwd_launches` count the two kernels' launches in this
-process, and `fwd_plan_launches` the forward's by plan: each is incremented
-where its kernel is launched and nowhere else, so a caller can reset them,
-run the model, and see that the path went through the kernels.
+process, and `fwd_plan_launches` and `bwd_plan_launches` each kernel's by
+plan: each is incremented where its kernel is launched and nowhere else, so
+a caller can reset them, run the model, and see that the path went through
+the kernels.
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ MAX_LEVELS = 4
 launches = 0
 bwd_launches = 0
 fwd_plan_launches = {"staged": 0, "global": 0}
+bwd_plan_launches = {"level_slice": 0, "global": 0}
 
 # the forward's launch plans (csrc/ms_deform_attn_fwd.cu executes them)
 FWD_KERNELS = ("global", "staged")  # the C function's kernel codes 0, 1
@@ -353,6 +355,7 @@ def ms_deform_attn_bwd_cuda(value, spatial_shapes, sampling_locations, attention
             raise RuntimeError(f"ms_deform_attn_bwd ({plan.kernel}) launch failed: "
                                f"CUDA error {err}")
         bwd_launches += 1
+        bwd_plan_launches[plan.kernel] += 1
     else:
         dvalue = torch.zeros_like(value, dtype=torch.float32)
         dloc.zero_()

@@ -2,10 +2,13 @@
 AVSBench S4 split, printing the split's mIoU and F-score.
 
 The counterpart of the repository's `pred.py` (ref: pred.py:130-238) for
-the PyTorch port. Config files are not read (no yaml here): the model is
-`MaskFormer()`'s defaults, COMBO-R50 S4.
+the PyTorch port. With `--config-file` the model is the one the config
+describes (`models/meta_arch.py::build_model`) and frames are padded to its
+INPUT.SIZE_DIVISIBILITY; without one it is `MaskFormer()`'s defaults,
+COMBO-R50 S4, at 224.
 
     python -m combo_avs_torch.pred --datasets-root DIR --checkpoint model_best.pth \
+        [--config-file combo_avs_tpu/configs/avs_s4/COMBO_R50_bs8_90k.yaml] \
         [--dataset avss4_sem_seg_test] [--max-videos N] [--batch-size 4] [--bf16] \
         [--output-dir DIR] [--device cpu]
 
@@ -27,6 +30,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--datasets-root", default=os.environ.get(
         "DETECTRON2_DATASETS", os.environ.get("AVS_DATASETS", "AVS_dataset")))
     p.add_argument("--checkpoint", required=True, help="reference model_best.pth or .pkl")
+    p.add_argument("--config-file", default="", help="a config file (default: COMBO-R50 S4)")
     p.add_argument("--dataset", default="avss4_sem_seg_test")
     p.add_argument("--max-videos", type=int, default=None)
     p.add_argument("--batch-size", type=int, default=4)
@@ -40,7 +44,7 @@ def main(argv=None) -> dict:
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
     from combo_avs_torch.data.catalogs import DatasetCatalog, register_all
-    from combo_avs_torch.models.meta_arch import MaskFormer
+    from combo_avs_torch.models.meta_arch import MaskFormer, build_model
     from combo_avs_torch.train.checkpoint import load_reference_checkpoint
     from combo_avs_torch.train.evaluate import evaluate
 
@@ -48,11 +52,20 @@ def main(argv=None) -> dict:
     if args.dataset not in DatasetCatalog:
         raise SystemExit(f"{args.dataset} is not registered under {args.datasets_root} "
                          f"(found: {sorted(DatasetCatalog)})")
-    model = MaskFormer(device=args.device)
+    size = 224
+    if args.config_file:
+        from combo_avs_torch.config import setup_cfg
+
+        cfg = setup_cfg(args.config_file)
+        model = build_model(cfg, args.device)
+        if cfg.INPUT.SIZE_DIVISIBILITY > 0:
+            size = cfg.INPUT.SIZE_DIVISIBILITY
+    else:
+        model = MaskFormer(device=args.device)
     load_reference_checkpoint(model, args.checkpoint)
     logging.getLogger("COMBO").info("Loaded checkpoint %s", args.checkpoint)
     results, _ = evaluate(model.eval(), args.dataset, batch_size=args.batch_size,
-                          max_videos=args.max_videos, bf16=args.bf16,
+                          max_videos=args.max_videos, bf16=args.bf16, size=size,
                           output_dir=args.output_dir)
     print(args.dataset, results["sem_seg"], flush=True)
     return results

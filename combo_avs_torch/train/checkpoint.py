@@ -1,5 +1,6 @@
-"""Checkpoints: reference `.pth` / `.pkl` files into the port's model, and
-JAX-package variables into the port's state dict.
+"""Checkpoints: reference `.pth` / `.pkl` files into the port's model,
+pretrained backbone and VGGish files into its towers, the training state to
+disk and back, and JAX-package variables into the port's state dict.
 
 `load_reference_checkpoint` reads a reference checkpoint (`model_best.pth`,
 or a d2-style `.pkl`) as `combo_avs_tpu/train/checkpoint.py::load_torch_file`
@@ -8,6 +9,21 @@ the port's modules carry. A file that holds the visual tower but not the
 pre-SAM one fills both from it (`fan_out_siamese`). The criterion's keys
 are dropped; the rest are checked strictly: a missing or an unexpected key
 raises.
+
+`convert_caffe2_resnet` (an MSRA `R-50.pkl`, BN folded into `_bn_s` /
+`_bn_b`), `convert_d2_resnet` (d2 names), `convert_resnet` (either, by its
+keys) and `convert_vggish` (the torchvggish `.pth`) are ports of the JAX
+package's importers (`combo_avs_tpu/train/checkpoint.py:86-169`) into the
+port's key names: one tower's keys (`stem.conv1.weight`,
+`res2.0.conv1.norm.running_var`, ...) or the VGGish module's. `load_pretrained`
+puts them into a `MaskFormer`, one backbone file filling both towers.
+
+`save_checkpoint` / `load_checkpoint` keep the whole training state
+(weights, AdamW moments, the optimizer's step count, the generator state,
+the iteration) in `step_N/state.pth` directories, the newest `keep` of
+them (`combo_avs_tpu/train/checkpoint.py:390-420`); `BestCheckpointer`
+(:422-456) keeps the weights of the best evaluation as `model_best.pth` in
+the reference layout, which `load_reference_checkpoint` reads.
 
 `state_dict_from_flax` is the inverse of
 `combo_avs_tpu/train/checkpoint.py::convert_combo_checkpoint` for the ResNet
@@ -20,11 +36,17 @@ parameters (stacked on a leading layer axis) unstacked into one key per layer.
 
 from __future__ import annotations
 
+import logging
+import os
 import pickle
-from typing import Dict
+import re
+import shutil
+from typing import Dict, Optional
 
 import numpy as np
 import torch
+
+logger = logging.getLogger("COMBO")
 
 # conv positions in the torchvggish Sequential, and linear positions in the
 # [Linear, ReLU] x 3 embeddings / AudioMLP Sequentials
@@ -212,3 +234,189 @@ def save_reference_checkpoint(model: torch.nn.Module, path: str) -> None:
     """Write the model as a d2-style checkpoint, {"model": state dict} of
     CPU tensors under the reference key names."""
     torch.save({"model": {k: v.detach().cpu() for k, v in model.state_dict().items()}}, path)
+
+
+# ---------------------------------------------------------------------------
+# pretrained towers
+# ---------------------------------------------------------------------------
+
+_CAFFE2_BRANCH = {"branch1": "shortcut", "branch2a": "conv1", "branch2b": "conv2",
+                  "branch2c": "conv3"}
+_D2_NORM = ("weight", "bias", "running_mean", "running_var")
+
+
+def _folded_bn(key: str, scale: np.ndarray, bias: np.ndarray) -> Dict[str, np.ndarray]:
+    """A Caffe2 BN with its statistics folded into scale and bias: mean 0 and
+    a variance that makes sqrt(var + 1e-5) one."""
+    return {f"{key}.weight": scale, f"{key}.bias": bias,
+            f"{key}.running_mean": np.zeros_like(scale),
+            f"{key}.running_var": np.ones_like(scale) - 1e-5}
+
+
+def convert_caffe2_resnet(sd: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """An MSRA / Caffe2 ResNet (`conv1_w`, `res2_0_branch2a_w`, ...,
+    `res2_0_branch2a_bn_s`) -> one tower's keys. Other keys (`fc1000_*`) are
+    not read."""
+    out = {"stem.conv1.weight": sd["conv1_w"],
+           **_folded_bn("stem.conv1.norm", sd["res_conv1_bn_s"], sd["res_conv1_bn_b"])}
+    for key in sd:
+        m = re.match(r"res(\d)_(\d+)_(branch\w+)_w$", key)
+        if not m:
+            continue
+        stage, block, branch = m.groups()
+        base = f"res{stage}.{block}.{_CAFFE2_BRANCH[branch]}"
+        out[f"{base}.weight"] = sd[key]
+        stem = key[:-len("_w")]
+        out.update(_folded_bn(f"{base}.norm", sd[f"{stem}_bn_s"], sd[f"{stem}_bn_b"]))
+    return out
+
+
+def convert_d2_resnet(sd: Dict[str, np.ndarray], prefix: str = "") -> Dict[str, np.ndarray]:
+    """d2 names (`stem.conv1.weight`, `res2.0.conv1.norm.running_mean`, ...)
+    under `prefix` -> one tower's keys: conv weights and the four norm
+    tensors (`num_batches_tracked` and the like are not read)."""
+    out = {}
+    for key, v in sd.items():
+        if not key.startswith(prefix):
+            continue
+        k = key[len(prefix):]
+        m = re.match(r"(stem\.conv1|res\d\.\d+\.(?:conv\d|shortcut))\.(.*)$", k)
+        if m and (m.group(2) == "weight"
+                  or (m.group(2).startswith("norm.") and m.group(2)[5:] in _D2_NORM)):
+            out[k] = v
+    return out
+
+
+def convert_resnet(sd: Dict[str, np.ndarray], prefix: str = "") -> Dict[str, np.ndarray]:
+    if any(k.startswith("conv1_w") for k in sd):
+        return convert_caffe2_resnet(sd)
+    return convert_d2_resnet(sd, prefix)
+
+
+def convert_vggish(sd: Dict[str, np.ndarray], prefix: str = "") -> Dict[str, np.ndarray]:
+    """The torchvggish state dict (`features.N`, `embeddings.N`) -> the keys
+    of the port's VGGish module."""
+    out = {}
+    for tid in _VGG_CONV_IDS:
+        for leaf in ("weight", "bias"):
+            out[f"features.{tid}.{leaf}"] = sd[f"{prefix}features.{tid}.{leaf}"]
+    for tid in _FC_IDS:
+        for leaf in ("weight", "bias"):
+            out[f"embeddings.{tid}.{leaf}"] = sd[f"{prefix}embeddings.{tid}.{leaf}"]
+    return out
+
+
+def _load_part(model: torch.nn.Module, part: Dict[str, np.ndarray], what: str) -> None:
+    """Copy `part` (full key names) into `model`; it must cover the submodules
+    it names exactly, in their shapes."""
+    own = model.state_dict()
+    prefixes = {k.split(".", 1)[0] + "." for k in part}
+    want = {k for k in own if k.startswith(tuple(prefixes))}
+    missing, unexpected = sorted(want - set(part)), sorted(set(part) - want)
+    if missing or unexpected:
+        raise ValueError(f"{what}: {len(missing)} missing keys {missing[:8]}, "
+                         f"{len(unexpected)} unexpected keys {unexpected[:8]}")
+    with torch.no_grad():
+        for k, v in part.items():
+            if tuple(own[k].shape) != tuple(np.shape(v)):
+                raise ValueError(f"{what}: {k} is {tuple(np.shape(v))}, the model's "
+                                 f"{tuple(own[k].shape)}")
+            own[k].copy_(torch.from_numpy(np.array(v)))
+
+
+def load_pretrained(model: torch.nn.Module, weights: str = "", vggish: str = "") -> None:
+    """MODEL.WEIGHTS (an R-50 `.pkl` or d2 file) into both ResNet towers and
+    the VGGish `.pth` into the (frozen) audio tower, each when its file
+    exists; a file that is named but missing is logged and skipped, and that
+    tower keeps its initialization, as the JAX package's
+    `train_net.py::load_pretrained` does."""
+    if weights and os.path.exists(weights):
+        tower = convert_resnet(load_reference_file(weights))
+        _load_part(model, fan_out_siamese({f"backbone.{k}": v for k, v in tower.items()}),
+                   weights)
+        logger.info("Loaded backbone weights from %s", weights)
+    elif weights:
+        logger.info("MODEL.WEIGHTS %s not found: the backbone keeps its initialization",
+                    weights)
+    if vggish and os.path.exists(vggish):
+        part = convert_vggish(load_reference_file(vggish))
+        _load_part(model, {f"audio_backbone.{k}": v for k, v in part.items()}, vggish)
+        logger.info("Loaded VGGish weights from %s", vggish)
+    elif vggish:
+        logger.info("VGGish weights %s not found: the audio tower keeps its initialization",
+                    vggish)
+
+
+# ---------------------------------------------------------------------------
+# the training state
+# ---------------------------------------------------------------------------
+
+STATE_FILE = "state.pth"
+
+
+def step_dirs(ckpt_dir: str) -> Dict[int, str]:
+    """{step: path} of the `step_N` checkpoints under `ckpt_dir`."""
+    if not os.path.isdir(ckpt_dir):
+        return {}
+    out = {}
+    for name in os.listdir(ckpt_dir):
+        m = re.fullmatch(r"step_(\d+)", name)
+        if m and os.path.exists(os.path.join(ckpt_dir, name, STATE_FILE)):
+            out[int(m.group(1))] = os.path.join(ckpt_dir, name)
+    return out
+
+
+def save_checkpoint(ckpt_dir: str, model: torch.nn.Module, optimizer, generator: torch.Generator,
+                    step: int, keep: int = 5) -> str:
+    """The training state after `step` iterations under `step_{step}/`; then
+    only the newest `keep` step checkpoints stay (d2's PeriodicCheckpointer
+    max_to_keep). `optimizer` is `train/optim.py::Optimizer`."""
+    path = os.path.join(ckpt_dir, f"step_{step}")
+    os.makedirs(path, exist_ok=True)
+    state = {"model": {k: v.detach().cpu() for k, v in model.state_dict().items()},
+             "optimizer": optimizer.adamw.state_dict(), "count": optimizer.count,
+             "generator": generator.get_state(), "iter": step}
+    tmp = os.path.join(path, STATE_FILE + ".tmp")
+    torch.save(state, tmp)
+    os.replace(tmp, os.path.join(path, STATE_FILE))
+    if keep and keep > 0:
+        for s in sorted(step_dirs(ckpt_dir))[:-keep]:
+            shutil.rmtree(os.path.join(ckpt_dir, f"step_{s}"), ignore_errors=True)
+    return path
+
+
+def load_checkpoint(path: str, model: torch.nn.Module, optimizer,
+                    generator: Optional[torch.Generator] = None) -> int:
+    """Restore what `save_checkpoint` wrote into `model`, `optimizer` and
+    `generator` (each on its own device); returns the iteration."""
+    state = torch.load(os.path.join(path, STATE_FILE), map_location="cpu", weights_only=False)
+    model.load_state_dict(state["model"], strict=True)
+    optimizer.adamw.load_state_dict(state["optimizer"])
+    optimizer.count = int(state["count"])
+    if generator is not None:
+        generator.set_state(state["generator"])
+    return int(state["iter"])
+
+
+class BestCheckpointer:
+    """Keep the weights of the best evaluation by `metric` as
+    `model_best.pth` (ref: models/engine/hooks.py:14-101)."""
+
+    def __init__(self, ckpt_dir: str, metric: str = "mIoU", mode: str = "max"):
+        if mode not in ("max", "min"):
+            raise ValueError(f"mode {mode!r}: max or min")
+        self.ckpt_dir, self.metric, self.mode = ckpt_dir, metric, mode
+        self.best: Optional[float] = None
+        self.best_path: Optional[str] = None
+
+    def update(self, results: Dict[str, Dict[str, float]], model: torch.nn.Module,
+               step: int) -> bool:
+        value = results["sem_seg"][self.metric]
+        better = (self.best is None or (self.mode == "max" and value > self.best)
+                  or (self.mode == "min" and value < self.best))
+        if better:
+            self.best = value
+            self.best_path = os.path.join(self.ckpt_dir, "model_best.pth")
+            save_reference_checkpoint(model, self.best_path)
+            logger.info("model_best.pth: %s %.4f at iteration %d", self.metric, value, step)
+        return better

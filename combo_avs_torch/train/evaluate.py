@@ -9,7 +9,9 @@ to the card, copied from pinned host memory without blocking; the reference's
 three timers (data, compute, eval) and its log lines; the per-video
 postprocess and metrics inline or, with `COMBO_EVAL_PROCS=N`, on N worker
 processes whose partial evaluators are merged; and the results written to
-`<output_dir>/inference/<dataset>/sem_seg_evaluation.pth`.
+`<output_dir>/inference/<dataset>/sem_seg_evaluation.pth`. A batch that
+runs the card out of memory is computed again one video at a time
+(`run_step`); `eval_settings` reads the size and precision from a config.
 
 The worker pool forks its workers before the loader's threads exist (spawn
 would re-import the caller's `__main__`); the workers run numpy and CPU
@@ -27,7 +29,7 @@ import multiprocessing
 import os
 import time
 import warnings
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -95,20 +97,45 @@ def _to_device(x: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.pin_memory().to(device, non_blocking=True)
 
 
+def run_step(step: Callable[[Dict], torch.Tensor], inputs: Dict[str, torch.Tensor]) -> np.ndarray:
+    """`step(inputs)` on the host; when the card runs out of memory on a batch
+    of several videos, the batch again one video at a time (the reference's
+    retry_if_cuda_oom, maskformer_model.py:423-433;
+    combo_avs_tpu/train/trainer.py:204-228). Only
+    `torch.cuda.OutOfMemoryError` is caught, and a single video that does
+    not fit raises it."""
+    try:
+        return step(inputs).cpu().numpy()
+    except torch.cuda.OutOfMemoryError:
+        B = inputs["images"].shape[0]
+        if B == 1:
+            raise
+        logger.warning("eval step ran out of device memory at batch_size=%d; retrying one "
+                       "video at a time", B)
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+        return np.concatenate([step({k: v[b:b + 1] for k, v in inputs.items()}).cpu().numpy()
+                               for b in range(B)])
+
+
 def evaluate(model: torch.nn.Module, dataset_name: str, batch_size: int = 1,
              max_videos: Optional[int] = None, bf16: bool = False, size: int = 224,
-             output_dir: str = "") -> Tuple[Dict, Dict]:
+             output_dir: str = "", mapper: Optional[Callable[[Dict], Dict]] = None,
+             evaluator: Optional[SemSegEvaluator] = None) -> Tuple[Dict, Dict]:
     """Evaluate `model` (on its own device) over the registered dataset.
     Returns ({"sem_seg": {"mIoU", "f_score"}}, timing), timing holding the
     wall, data, compute and eval seconds and the counts of real videos and
-    frames. `size` is INPUT.SIZE_DIVISIBILITY, the padded frame size."""
+    frames. `size` is INPUT.SIZE_DIVISIBILITY, the padded frame size;
+    `mapper` defaults to the S4 eval mapper at that size, `evaluator` to a
+    fresh S4/MS3 one."""
     if MetadataCatalog[dataset_name].get("evaluator_type") != "sem_seg":
         raise NotImplementedError(f"{dataset_name}: only the S4/MS3 evaluator is ported")
     records = DatasetCatalog[dataset_name]()
     if max_videos:
         records = records[:max_videos]
-    mapper = AVSSemanticDatasetMapper(size_divisibility=size)
-    evaluator = SemSegEvaluator()
+    if mapper is None:
+        mapper = AVSSemanticDatasetMapper(size_divisibility=size)
+    evaluator = evaluator if evaluator is not None else SemSegEvaluator()
     step = make_eval_step(model, out_size=(size, size), bf16=bf16)
     device = next(model.parameters()).device
     n_devices = torch.cuda.device_count() if device.type == "cuda" else 1
@@ -127,7 +154,7 @@ def evaluate(model: torch.nn.Module, dataset_name: str, batch_size: int = 1,
                 raise ValueError(f"{dataset_name}: videos without pre-SAM Maskiges; COMBO "
                                  "needs them")
             inputs = {k: _to_device(batch[k], device) for k in MODEL_INPUTS if k in batch}
-            sem = step(inputs).cpu().numpy()
+            sem = run_step(step, inputs)
             t_compute += time.perf_counter() - tc
             real = sum(not r.get("_pad") for r in recs)
             n_done, n_pad = n_done + real, n_pad + len(recs) - real
@@ -187,6 +214,22 @@ def evaluate(model: torch.nn.Module, dataset_name: str, batch_size: int = 1,
     timing = {"total_s": total, "data_s": t_data, "compute_s": t_compute, "eval_s": t_eval,
               "videos": n_done, "frames": n_frames}
     return results, timing
+
+
+def eval_settings(cfg, device: torch.device) -> Dict:
+    """evaluate()'s keywords from a config: the padded size from
+    INPUT.SIZE_DIVISIBILITY (224 when unset) and the precision from TEST.BF16,
+    where "auto" is bf16 on the card and fp32 on the CPU
+    (combo_avs_tpu/train/trainer.py:185-188). Test-time augmentation
+    (TEST.AUG.ENABLED) is not ported yet and raises."""
+    if cfg.TEST.AUG.ENABLED:
+        raise NotImplementedError("TEST.AUG.ENABLED = True: test-time augmentation is not "
+                                  "ported yet")
+    bf16 = cfg.TEST.get("BF16", "auto")
+    if bf16 == "auto":
+        bf16 = device.type == "cuda"
+    size = cfg.INPUT.SIZE_DIVISIBILITY if cfg.INPUT.SIZE_DIVISIBILITY > 0 else 224
+    return {"size": size, "bf16": bool(bf16)}
 
 
 def verify_results(results: Dict, expected: Sequence = ()) -> bool:

@@ -111,11 +111,11 @@ class Optimizer:
                  warmup_iters: int = 0, warmup_factor: float = 1.0, power: float = 0.9,
                  weight_decay: float = 0.05, weight_decay_norm: float = 0.0,
                  weight_decay_embed: float = 0.0, backbone_multiplier: float = 0.1,
-                 clip_value: float = 0.01):
+                 clip_value: float = 0.01, constant_ending: float = 0.0):
         self.groups = param_groups(model, weight_decay, weight_decay_norm, weight_decay_embed,
                                    backbone_multiplier)
         self.schedule = warmup_poly_schedule(base_lr, max_iter, warmup_iters, warmup_factor,
-                                             power)
+                                             power, constant_ending)
         self.clip_value = clip_value
         self.adamw = torch.optim.AdamW(self.groups, lr=base_lr, betas=(0.9, 0.999), eps=1e-8)
         self.count = 0  # updates taken, as optax's schedule count
@@ -135,3 +135,30 @@ class Optimizer:
             g["lr"] = lr * g["lr_multiplier"]
         self.adamw.step()
         self.count += 1
+
+
+def build_optimizer(cfg, model: nn.Module) -> Optimizer:
+    """The optimizer a config's SOLVER describes
+    (combo_avs_tpu/train/optim.py::build_optimizer): AdamW with the
+    reference's groups, WarmupPolyLR, and the full-model gradient clip when
+    CLIP_GRADIENTS is on. Raises NotImplementedError for an optimizer,
+    schedule or clip type the port does not have (SGD; per-parameter
+    clipping)."""
+    s = cfg.SOLVER
+    if s.OPTIMIZER.upper() != "ADAMW":
+        raise NotImplementedError(f"SOLVER.OPTIMIZER = {s.OPTIMIZER!r} is not ported yet "
+                                  "(the port has ADAMW)")
+    if s.get("LR_SCHEDULER_NAME", "WarmupPolyLR") != "WarmupPolyLR":
+        raise NotImplementedError(f"SOLVER.LR_SCHEDULER_NAME = {s.LR_SCHEDULER_NAME!r} is not "
+                                  "ported yet (the port has WarmupPolyLR)")
+    clip = s.CLIP_GRADIENTS
+    if clip.ENABLED and clip.CLIP_TYPE != "full_model":
+        raise NotImplementedError(f"SOLVER.CLIP_GRADIENTS.CLIP_TYPE = {clip.CLIP_TYPE!r} is not "
+                                  "ported yet (the port clips the full model)")
+    return Optimizer(model, base_lr=s.BASE_LR, max_iter=s.MAX_ITER, warmup_iters=s.WARMUP_ITERS,
+                     warmup_factor=s.WARMUP_FACTOR, power=s.get("POLY_LR_POWER", 0.9),
+                     weight_decay=s.WEIGHT_DECAY, weight_decay_norm=s.WEIGHT_DECAY_NORM,
+                     weight_decay_embed=s.WEIGHT_DECAY_EMBED,
+                     backbone_multiplier=s.BACKBONE_MULTIPLIER,
+                     clip_value=clip.CLIP_VALUE if clip.ENABLED else 0.0,
+                     constant_ending=s.get("POLY_LR_CONSTANT_ENDING", 0.0))
