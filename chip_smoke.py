@@ -1,5 +1,7 @@
-"""Drive the PyTorch port's paths, COMBO-R50 S4 inference, S4 training, and
-the S4 evaluation and training entry points, on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's paths on one NVIDIA GPU and check them: COMBO-R50
+S4 inference, S4 training, and the S4 evaluation and training entry points;
+then COMBO-PVTv2-B5 at full depth and width through the same steps, its
+training entry point, and the MS3 evaluation entry point.
 
     python3 chip_smoke.py [--kernels-only]
 
@@ -48,9 +50,9 @@ non-zero and never prints its last line:
      `main`, in this process) on the shipped
      `combo_avs_tpu/configs/avs_s4/COMBO_R50_bs8_90k.yaml` at full width and
      with the full augmentation, over a synthetic S4 tree (16 train videos,
-     8 val), 6 iterations with an evaluation and a step checkpoint every 3,
-     then resumed to 8: every iteration logged (the resumed run 7 and 8
-     only), finite losses, step_3, step_6 and a `model_best.pth` that loads,
+     8 val), 2 iterations with an evaluation and a step checkpoint at 2,
+     then resumed to 3: every iteration logged (the resumed run 3 only),
+     finite losses, step_2, step_3 and a `model_best.pth` that loads,
      the mIoU in metrics.json, and each kernel launched as often as the
      steps and the evaluation batches imply, through the training phase's
      plans; its s/iter and data_time per iteration beside the bare step's,
@@ -58,11 +60,26 @@ non-zero and never prints its last line:
   8. the same weights on the card (TF32 off) against the CPU (plain path):
      the inference forward on one 224^2 frame, and the training losses and
      gradients on 1 video x 5 frames x 128^2 with the same injected draws;
+     the card takes the CPU's matching and the CPU's decoder attention masks,
+     each held to the bound a near-tie allows;
   9. one training step at 12500 points, whose 37500 candidates the
      stratified selection does not divide, so that K6 runs once per decoder
      output;
-  10. a JSON line of per-kernel results (`ms` device ms, `call_ms` call ms),
-     then the final JSON status line.
+  10. COMBO-PVTv2-B5: `build_model` of the shipped
+     `avs_s4/COMBO_PVTV2B5_bs8_90k.yaml` on the card (B5 towers at depths 3,
+     6, 40, 3), seeded weights; phases 4, 6 and 8 on it (pvt-slice and
+     pvt-train, each with a profiler window: device kernel ms a step and
+     its share of the step's wall; pvt-train's peak memory;
+     pvt-card-vs-cpu with the eval forward on 1 video x 5 frames x 224^2),
+     the same launch checks; phase 7 on that config (pvt-entry); then `python -m combo_avs_torch.pred --config-file
+     avs_ms3/COMBO_PVTV2B5_bs8_20k.yaml` with the model_best.pth it wrote
+     over a synthetic MS3 val tree of 16 videos (pred-ms3: mIoU, F-score,
+     videos/s, its timers, K1 six and K7 one launch per batch); neither
+     entry point may import jax, flax, yaml, cv2, tensorflow or the JAX
+     package;
+  11. the wall of each phase and the total, a JSON line of per-kernel
+     results (`ms` device ms, `call_ms` call ms; launches by path), then the
+     final JSON status line.
 Without a CUDA device it exits non-zero at once.
 """
 
@@ -170,11 +187,18 @@ K7_TOL_BF16 = 8e-3
 K6_SHAPE = dict(G=TRAIN_M, NS=3 * NUM_POINTS, P=3 * NUM_POINTS // 4)
 # the eval entry point: a synthetic S4 val split, evaluated at batch 4
 EVAL_VIDEOS, EVAL_BATCH = 16, 4
-# the training entry point: two distinct batches of 8 train videos, 8 val
-# videos (one a batch, as the trainer evaluates), 6 iterations with an
-# evaluation and a checkpoint every 3, then resumed to 8
+# the training entry points (COMBO-R50, then COMBO-PVTv2-B5): two distinct
+# batches of 8 train videos, 8 val videos (one a batch, as the trainer
+# evaluates), 2 iterations with an evaluation and a checkpoint at 2, then
+# resumed to 3
 ENTRY_TRAIN_VIDEOS, ENTRY_VAL_VIDEOS = 2 * TRAIN_B, 8
-ENTRY_ITERS, ENTRY_PERIOD, ENTRY_RESUME_TO = 6, 3, 8
+ENTRY_ITERS, ENTRY_PERIOD, ENTRY_RESUME_TO = 2, 2, 3
+# the MS3 evaluation entry point: a synthetic MS3 val split, at batch 4
+PRED_VIDEOS = 16
+CONFIG_DIR = os.path.join(REPO, "combo_avs_tpu", "configs")
+R50_CONFIG = os.path.join(CONFIG_DIR, "avs_s4", "COMBO_R50_bs8_90k.yaml")
+PVT_CONFIGS = {"s4": os.path.join(CONFIG_DIR, "avs_s4", "COMBO_PVTV2B5_bs8_90k.yaml"),
+               "ms3": os.path.join(CONFIG_DIR, "avs_ms3", "COMBO_PVTV2B5_bs8_20k.yaml")}
 # K7 against the plain tail on the same forward (fp32): the maps differ by
 # fp32 rounding (1e-5 of max |plain|), which can flip a pixel lying within
 # that of the 0.5 threshold; the metrics, rounded to 4 decimals, may move by
@@ -887,7 +911,10 @@ def read_counts() -> dict:
             "k7": seminf_cuda.launches}
 
 
-def phase_slice(model, smi: str) -> dict:
+def phase_slice(model, smi: str, tag: str = "slice", profile: bool = False) -> dict:
+    """make_eval_step at full width on NUM_BATCHES batches in fp32 and bf16:
+    frames/s, and K1 (6 a forward) and K7 (1 a batch, patch plan) counted by
+    plan; with `profile`, a profiler window over more steps of each."""
     from combo_avs_torch.ops import deform_attn_cuda, seminf_cuda
     from combo_avs_torch.train.train_step import make_eval_step
 
@@ -922,32 +949,37 @@ def phase_slice(model, smi: str) -> dict:
             K1_LEVELS, B * T, Lq, K1_SHAPE["M"], K1_SHAPE["D"], K1_SHAPE["P"],
             2 if name == "bf16" else 4, optin, deform_attn_cuda.sm_count(dev.index)).kernel
         if k1_plans[name][chosen] != n:
-            raise AssertionError(f"[slice] {name}: K1 launches by plan {k1_plans[name]}, "
+            raise AssertionError(f"[{tag}] {name}: K1 launches by plan {k1_plans[name]}, "
                                  f"expected all {n} through {chosen}")
         # the eval tail's 4x upsample takes K7's patch plan
         k7_plans[name] = {kn: c - k7_before[kn] for kn, c in seminf_cuda.plan_launches.items()}
         if k7_plans[name] != {"pixel": 0, "patch": NUM_BATCHES}:
-            raise AssertionError(f"[slice] {name}: K7 launches by plan {k7_plans[name]}, "
+            raise AssertionError(f"[{tag}] {name}: K7 launches by plan {k7_plans[name]}, "
                                  f"expected all {NUM_BATCHES} through patch")
         for o in outs:
             if tuple(o.shape) != (B * T, 2, SIZE, SIZE) or o.dtype != torch.float32:
-                raise AssertionError(f"[slice] {name}: output {tuple(o.shape)} {o.dtype}")
+                raise AssertionError(f"[{tag}] {name}: output {tuple(o.shape)} {o.dtype}")
             if not bool(torch.isfinite(o).all()) or float(o.min()) < 0:
-                raise AssertionError(f"[slice] {name}: output not finite and non-negative")
+                raise AssertionError(f"[{tag}] {name}: output not finite and non-negative")
         want = {k: before[k] + {"k1": 6, "k7": 1}.get(k, 0) * NUM_BATCHES for k in before}
         if after != want:
-            raise AssertionError(f"[slice] {name}: launches {after} (before {before}) for "
+            raise AssertionError(f"[{tag}] {name}: launches {after} (before {before}) for "
                                  f"{NUM_BATCHES} forwards, expected {want}: K1 6 and K7 1 "
                                  "per forward")
         fps[name] = NUM_BATCHES * B * T / dt
-        log(f"[slice] {name}: {NUM_BATCHES} x [{B}x{T}x{SIZE}^2] -> {tuple(outs[0].shape)} "
+        log(f"[{tag}] {name}: {NUM_BATCHES} x [{B}x{T}x{SIZE}^2] -> {tuple(outs[0].shape)} "
             f"range [{float(outs[0].min()):.4f}, {float(outs[0].max()):.4f}], "
             f"K1 launches {n} (by plan {k1_plans[name]}), K7 {after['k7'] - before['k7']} "
             f"(by plan {k7_plans[name]}), "
             f"{fps[name]:.1f} frames/s on {smi} "
             f"(TF32 matmul {torch.backends.cuda.matmul.allow_tf32}, "
             f"cuDNN {torch.backends.cudnn.allow_tf32})")
-    return {"launches": read_counts(), "fps": fps, "k1_plans": k1_plans, "k7_plans": k7_plans}
+    out = {"launches": read_counts(), "fps": fps, "k1_plans": k1_plans, "k7_plans": k7_plans}
+    if profile:
+        out["profile"] = {name: profile_window(f"{tag} {name}", lambda: step(batches[0]),
+                                               B * T / fps[name] * 1e3)
+                          for name, step in steps.items()}
+    return out
 
 
 def phase_eval_entry(model, smi: str) -> dict:
@@ -1054,8 +1086,9 @@ def phase_train_fallback(model) -> dict:
     return {"launches": counts, "total_loss": m["total_loss"], "s": dt}
 
 
-def phase_train(model, smi: str) -> dict:
-    """make_train_step at full width: 1 warm-up and TRAIN_STEPS timed steps."""
+def phase_train(model, smi: str, tag: str = "train", profile: bool = False) -> dict:
+    """make_train_step at full width: 1 warm-up and TRAIN_STEPS timed steps;
+    with `profile`, a profiler window over one more step, after the checks."""
     from combo_avs_torch.losses.criterion import SetCriterion, build_weight_dict
     from combo_avs_torch.ops import point_sample_cuda
     from combo_avs_torch.train.optim import Optimizer
@@ -1077,7 +1110,7 @@ def phase_train(model, smi: str) -> dict:
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         metrics.append({k: float(v) for k, v in m.items()})
-        log(f"[train] step {i}{' (warm-up)' if i == 0 else ''}: {times[-1]:.4f} s, "
+        log(f"[{tag}] step {i}{' (warm-up)' if i == 0 else ''}: {times[-1]:.4f} s, "
             f"total_loss {metrics[-1]['total_loss']:.6f}, loss_ce {metrics[-1]['loss_ce']:.6f}, "
             f"loss_mask {metrics[-1]['loss_mask']:.6f}, loss_dice {metrics[-1]['loss_dice']:.6f}")
     counts = read_counts()
@@ -1085,32 +1118,38 @@ def phase_train(model, smi: str) -> dict:
     steps = 1 + TRAIN_STEPS
     want = {k: v * steps for k, v in TRAIN_LAUNCHES.items()}
     if counts != want:
-        raise AssertionError(f"[train] launches {counts} in {steps} steps, expected {want}")
+        raise AssertionError(f"[{tag}] launches {counts} in {steps} steps, expected {want}")
     dimg_plans = dict(point_sample_cuda.dimg_plan_launches)
     if dimg_plans != {"global": 0, "staged": want["k4_dimg"]}:
-        raise AssertionError(f"[train] K4 dimg launches by plan {dimg_plans}: every one should "
+        raise AssertionError(f"[{tag}] K4 dimg launches by plan {dimg_plans}: every one should "
                              "take the staged plan")
     for m in metrics:
         if set(m) != {"total_loss", *wd} or not all(np.isfinite(v) for v in m.values()):
-            raise AssertionError(f"[train] losses not finite or misnamed: {m}")
+            raise AssertionError(f"[{tag}] losses not finite or misnamed: {m}")
     after = model.state_dict()
     changed = {k for k in before if not torch.equal(before[k], after[k])}
     buffers = {n for n, _ in model.named_buffers()}
     frozen = {k for k in before if k.startswith("audio_backbone.")} | buffers
     decoder = {k for k in before if k.startswith("sem_seg_head.predictor.")}
     if changed & frozen:
-        raise AssertionError(f"[train] frozen tensors changed: {sorted(changed & frozen)[:5]}")
+        raise AssertionError(f"[{tag}] frozen tensors changed: {sorted(changed & frozen)[:5]}")
     if not decoder <= changed:
-        raise AssertionError(f"[train] decoder tensors unchanged: {sorted(decoder - changed)[:5]}")
+        raise AssertionError(f"[{tag}] decoder tensors unchanged: {sorted(decoder - changed)[:5]}")
+    for tower in ("backbone.", "pre_sam_backbone."):
+        if not any(k.startswith(tower) for k in changed):
+            raise AssertionError(f"[{tag}] no tensor of the {tower[:-1]} tower changed")
     med = float(np.median(times[1:]))
-    log(f"[train] {TRAIN_STEPS} steps of [{TRAIN_B}x{T}x{SIZE}^2], K={TRAIN_K}, fp32: median "
+    log(f"[{tag}] {TRAIN_STEPS} steps of [{TRAIN_B}x{T}x{SIZE}^2], K={TRAIN_K}, fp32: median "
         f"{med:.4f} s/step ({TRAIN_N / med:.1f} frames/s), warm-up {times[0]:.4f} s, "
         f"max_memory_allocated {peak / 2**30:.2f} GiB on {smi} (TF32 matmul "
         f"{torch.backends.cuda.matmul.allow_tf32}, cuDNN {torch.backends.cudnn.allow_tf32}); "
         f"{len(changed)} of {len(before)} tensors changed, frozen ones unchanged; launches "
         f"{counts} in {steps} steps (K4 dimg by plan {dimg_plans})")
-    return {"launches": counts, "s_per_step": med, "peak_bytes": peak, "times": times,
-            "dimg_plans": dimg_plans}
+    out = {"launches": counts, "s_per_step": med, "peak_bytes": peak, "times": times,
+           "dimg_plans": dimg_plans}
+    if profile:
+        out["profile"] = profile_window(tag, lambda: step(batch), med * 1e3, calls=1)
+    return out
 
 
 def _plans() -> dict:
@@ -1123,62 +1162,64 @@ def _plans() -> dict:
             "k7": dict(seminf_cuda.plan_launches)}
 
 
-def phase_train_entry(smi: str, bare_s_per_step: float) -> dict:
-    """The S4 training entry point at full width: `train_net.main` on the
-    shipped COMBO-R50 S4 config over a synthetic tree (16 train videos, two
-    distinct batches of 8; 8 val videos), 6 iterations with an evaluation and
-    a step checkpoint every 3, then `--resume --max-iter 8`. Every iteration
-    is logged; the resumed run logs 7 and 8 only; the losses are finite;
-    step_3, step_6 and a `model_best.pth` that loads are written, and
+def phase_train_entry(smi: str, bare_s_per_step: float, cfg_file: str, tag: str = "train-entry",
+                      keep_dir: str = "") -> dict:
+    """A training entry point at full width: `train_net.main` on a shipped
+    S4 config over a synthetic tree (ENTRY_TRAIN_VIDEOS train videos,
+    batches of 8; ENTRY_VAL_VIDEOS val videos), ENTRY_ITERS iterations with
+    an evaluation and a step checkpoint every ENTRY_PERIOD, then `--resume
+    --max-iter ENTRY_RESUME_TO`. Every iteration is logged; the resumed run
+    logs the iterations after ENTRY_ITERS only; the losses are finite; the step checkpoints and a
+    `model_best.pth` that loads into the config's model are written, and
     metrics.json holds the mIoU; each kernel launches as often as the steps
-    and the eval batches imply, through the plans the training phase
-    takes (K1 staged, K2 level_slice, K4 dimg staged, K7 patch); and the
-    run imports none of jax, flax, yaml, cv2, tensorflow or the JAX
-    package."""
+    and the eval batches imply, through the plans the training phase takes
+    (K1 staged, K2 level_slice, K4 dimg staged, K7 patch); and the run
+    imports none of jax, flax, yaml, cv2, tensorflow or the JAX package.
+    With `keep_dir`, the output directory (model_best.pth) is kept there."""
+    import shutil
     import tempfile
 
     from combo_avs_torch import train_net
+    from combo_avs_torch.config import setup_cfg
     from combo_avs_torch.data.synth import make_s4
-    from combo_avs_torch.models.meta_arch import MaskFormer
+    from combo_avs_torch.models.meta_arch import build_model
     from combo_avs_torch.train.checkpoint import load_reference_checkpoint
 
-    cfg_file = os.path.join(REPO, "combo_avs_tpu", "configs", "avs_s4", "COMBO_R50_bs8_90k.yaml")
+    train_videos, val_videos = ENTRY_TRAIN_VIDEOS, ENTRY_VAL_VIDEOS
+    iters, period, resume_to = ENTRY_ITERS, ENTRY_PERIOD, ENTRY_RESUME_TO
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        make_s4(tmp, ENTRY_TRAIN_VIDEOS, ENTRY_VAL_VIDEOS, size=SIZE)
-        log(f"[train-entry] synthetic S4 tree: {ENTRY_TRAIN_VIDEOS} train and {ENTRY_VAL_VIDEOS} "
+        make_s4(tmp, train_videos, val_videos, size=SIZE)
+        log(f"[{tag}] synthetic S4 tree: {train_videos} train and {val_videos} "
             f"val videos x {T} frames x {SIZE}^2 in {time.perf_counter() - t0:.1f} s")
         out_dir = os.path.join(tmp, "out")
         common = ["--config-file", cfg_file, "--datasets-root", tmp, "--log-every", "1"]
-        opts = ["OUTPUT_DIR", out_dir, "SOLVER.MAX_ITER", str(ENTRY_ITERS), "TEST.EVAL_PERIOD",
-                str(ENTRY_PERIOD), "SOLVER.CHECKPOINT_PERIOD", str(ENTRY_PERIOD)]
-        runs = (("first", common + opts, range(1, ENTRY_ITERS + 1), ENTRY_ITERS // ENTRY_PERIOD),
-                ("resumed", common + ["--resume", "--max-iter", str(ENTRY_RESUME_TO)] + opts,
-                 range(ENTRY_ITERS + 1, ENTRY_RESUME_TO + 1), 0))
+        opts = ["OUTPUT_DIR", out_dir, "SOLVER.MAX_ITER", str(iters), "TEST.EVAL_PERIOD",
+                str(period), "SOLVER.CHECKPOINT_PERIOD", str(period)]
+        runs = (("first", common + opts, range(1, iters + 1), iters // period),
+                ("resumed", common + ["--resume", "--max-iter", str(resume_to)] + opts,
+                 range(iters + 1, resume_to + 1), 0))
         rows_seen = 0
-        for name, argv, iters, evals in runs:
+        for name, argv, want_iters, evals in runs:
             torch.cuda.synchronize()
             reset_counts()
             t0 = time.perf_counter()
             trainer = train_net.main(argv)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            loaded = [m for m in ("jax", "flax", "yaml", "cv2", "combo_avs_tpu", "tensorflow")
-                      if m in sys.modules]
-            if loaded:
-                raise AssertionError(f"[train-entry] {name}: train_net.main imported {loaded}")
+            check_imports(f"[{tag}] {name}: train_net.main")
             counts, plans = read_counts(), _plans()
             with open(os.path.join(out_dir, "metrics.jsonl")) as f:
                 rows = [json.loads(line) for line in f][rows_seen:]
             rows_seen += len(rows)
             steps = [r for r in rows if "total_loss" in r]
-            if [r["iter"] for r in steps] != list(iters):
-                raise AssertionError(f"[train-entry] {name}: logged iterations "
-                                     f"{[r['iter'] for r in steps]}, expected {list(iters)}")
+            if [r["iter"] for r in steps] != list(want_iters):
+                raise AssertionError(f"[{tag}] {name}: logged iterations "
+                                     f"{[r['iter'] for r in steps]}, expected {list(want_iters)}")
             if not all(np.isfinite(r["total_loss"]) for r in steps):
-                raise AssertionError(f"[train-entry] {name}: losses {steps}")
-            n, batches = len(steps), evals * ENTRY_VAL_VIDEOS
+                raise AssertionError(f"[{tag}] {name}: losses {steps}")
+            n, batches = len(steps), evals * val_videos
             want = {k: v * n for k, v in TRAIN_LAUNCHES.items()}
             want["k1"] += 6 * batches
             want["k7"] += batches
@@ -1187,47 +1228,49 @@ def phase_train_entry(smi: str, bare_s_per_step: float) -> dict:
                           "k4_dimg": {"staged": want["k4_dimg"], "global": 0},
                           "k7": {"patch": want["k7"], "pixel": 0}}
             if counts != want or plans != want_plans:
-                raise AssertionError(f"[train-entry] {name}: launches {counts} by plan {plans}, "
+                raise AssertionError(f"[{tag}] {name}: launches {counts} by plan {plans}, "
                                      f"expected {want} by plan {want_plans} ({n} steps, "
                                      f"{batches} eval batches)")
             evals_done = [r for r in rows if "mIoU" in r]
             if len(evals_done) != evals:
-                raise AssertionError(f"[train-entry] {name}: {len(evals_done)} evaluations, "
+                raise AssertionError(f"[{tag}] {name}: {len(evals_done)} evaluations, "
                                      f"expected {evals}")
             for r in steps:
-                log(f"[train-entry] {name}: iter {r['iter']}: total_loss {r['total_loss']:.6f}, "
+                log(f"[{tag}] {name}: iter {r['iter']}: total_loss {r['total_loss']:.6f}, "
                     f"{r['s_per_iter']:.4f} s/iter, data_time {r['data_time']:.4f} s/iter "
                     f"(bare step {bare_s_per_step:.4f} s/step) on {smi}")
-            timing = trainer.eval_timing.get("avss4_sem_seg_val")
+            timing = trainer.eval_timing.get(trainer.cfg.DATASETS.TEST[0])
             for r in evals_done:
-                log(f"[train-entry] {name}: eval @ {r['iter']}: mIoU {r['mIoU']:.4f}, "
+                log(f"[{tag}] {name}: eval @ {r['iter']}: mIoU {r['mIoU']:.4f}, "
                     f"f_score {r['f_score']:.4f}")
             if timing:
-                log(f"[train-entry] {name}: last eval {timing['videos']} videos in "
+                log(f"[{tag}] {name}: last eval {timing['videos']} videos in "
                     f"{timing['total_s']:.3f} s (data {timing['data_s']:.3f}, compute "
                     f"{timing['compute_s']:.3f}, eval {timing['eval_s']:.3f}): "
                     f"{timing['videos'] / timing['total_s']:.2f} videos/s on {smi}")
-            log(f"[train-entry] {name}: {wall:.1f} s wall; launches {counts} by plan {plans}")
+            log(f"[{tag}] {name}: {wall:.1f} s wall; launches {counts} by plan {plans}")
             out[name] = {"launches": counts, "plans": plans, "rows": steps, "evals": evals_done,
                          "eval_timing": timing, "wall_s": wall}
             del trainer
             torch.cuda.empty_cache()
         names = set(os.listdir(out_dir))
-        need = {f"step_{ENTRY_PERIOD}", f"step_{ENTRY_ITERS}", f"step_{ENTRY_RESUME_TO}",
-                "model_best.pth", "metrics.json"}
+        need = {f"step_{period}", f"step_{iters}", f"step_{resume_to}", "model_best.pth",
+                "metrics.json"}
         if not need <= names:
-            raise AssertionError(f"[train-entry] {sorted(need - names)} missing in {sorted(names)}")
-        best = MaskFormer()
+            raise AssertionError(f"[{tag}] {sorted(need - names)} missing in {sorted(names)}")
+        best = build_model(setup_cfg(cfg_file))
         load_reference_checkpoint(best, os.path.join(out_dir, "model_best.pth"))
         del best
         with open(os.path.join(out_dir, "metrics.json")) as f:
             if not any("sem_seg/mIoU" in json.loads(line) for line in f):
-                raise AssertionError("[train-entry] metrics.json holds no sem_seg/mIoU row")
+                raise AssertionError(f"[{tag}] metrics.json holds no sem_seg/mIoU row")
+        if keep_dir:
+            shutil.copy(os.path.join(out_dir, "model_best.pth"), keep_dir)
     torch.cuda.empty_cache()
     steps = out["first"]["rows"] + out["resumed"]["rows"]
     s_iter = [r["s_per_iter"] for r in steps[1:]]
     d_iter = [r["data_time"] for r in steps[1:]]
-    log(f"[train-entry] loop after the first iteration: median {np.median(s_iter):.4f} s/iter, "
+    log(f"[{tag}] loop after the first iteration: median {np.median(s_iter):.4f} s/iter, "
         f"data_time median {np.median(d_iter):.4f} s/iter, against the bare step's "
         f"{bare_s_per_step:.4f} s/step; {sorted(names)} written; model_best.pth loads; "
         f"on {smi}")
@@ -1238,30 +1281,182 @@ def phase_train_entry(smi: str, bare_s_per_step: float) -> dict:
     return out
 
 
-def phase_card_vs_cpu(model) -> None:
-    from combo_avs_torch.models.meta_arch import MaskFormer
+NOT_IMPORTED = ("jax", "flax", "yaml", "cv2", "combo_avs_tpu", "tensorflow")
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    rng = np.random.RandomState(SEED + 1)
-    images = rng.randint(0, 256, (1, 1, SIZE, SIZE, 3)).astype(np.float32)
-    mel = rng.randn(1, 1, 96, 64).astype(np.float32)
-    pre = rng.randint(0, 256, (1, 1, SIZE, SIZE, 3)).astype(np.float32)
-    cpu = MaskFormer(device="cpu")
+
+def check_imports(what: str) -> None:
+    """Raise if the process has imported any of NOT_IMPORTED."""
+    loaded = [m for m in NOT_IMPORTED if m in sys.modules]
+    if loaded:
+        raise AssertionError(f"{what} imported {loaded}")
+
+
+def phase_pred_ms3(smi: str, checkpoint: str) -> dict:
+    """The MS3 evaluation entry point at full width: `pred --config-file
+    avs_ms3/COMBO_PVTV2B5_bs8_20k.yaml` with `checkpoint` over a synthetic
+    MS3 val tree of PRED_VIDEOS videos at batch EVAL_BATCH (fp32): metrics in
+    [0, 1], K1 six times and K7 once per batch (patch), its timers, and no
+    import of jax, flax, yaml, cv2, tensorflow or the JAX package."""
+    import tempfile
+
+    from combo_avs_torch import pred
+    from combo_avs_torch.data.synth import make_ms3
+    from combo_avs_torch.train import evaluate as evaluate_mod
+
+    batches = -(-PRED_VIDEOS // EVAL_BATCH)
+    timings = []
+    real = evaluate_mod.evaluate
+
+    def timed(*args, **kw):
+        res, tm = real(*args, **kw)
+        timings.append(tm)
+        return res, tm
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        make_ms3(tmp, 0, PRED_VIDEOS, size=SIZE)
+        log(f"[pred-ms3] synthetic MS3 val tree: {PRED_VIDEOS} videos x {T} frames x {SIZE}^2 in "
+            f"{time.perf_counter() - t0:.1f} s")
+        evaluate_mod.evaluate = timed
+        try:
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            res = pred.main(["--datasets-root", tmp, "--checkpoint", checkpoint, "--config-file",
+                             PVT_CONFIGS["ms3"], "--dataset", "avsms3_sem_seg_val",
+                             "--batch-size", str(EVAL_BATCH)])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            evaluate_mod.evaluate = real
+    check_imports("[pred-ms3] pred.main")
+    counts, plans = read_counts(), _plans()
+    want = {k: {"k1": 6 * batches, "k7": batches}.get(k, 0) for k in counts}
+    if counts != want or plans["k7"] != {"patch": batches, "pixel": 0}:
+        raise AssertionError(f"[pred-ms3] launches {counts} by plan {plans}, expected {want}")
+    m, (tm,) = res["sem_seg"], timings
+    if not all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in m.values()) or tm["videos"] != \
+            PRED_VIDEOS:
+        raise AssertionError(f"[pred-ms3] metrics {m} over {tm['videos']} videos")
+    log(f"[pred-ms3] mIoU {m['mIoU']:.4f}, f_score {m['f_score']:.4f}; {tm['videos']} videos, "
+        f"{tm['frames']} frames in {tm['total_s']:.3f} s (data {tm['data_s']:.3f}, compute "
+        f"{tm['compute_s']:.3f}, eval {tm['eval_s']:.3f}): {tm['videos'] / tm['total_s']:.2f} "
+        f"videos/s; pred.main {wall:.1f} s wall; launches {counts} on {smi}")
+    return {"metrics": m, "timing": tm, "launches": counts, "wall_s": wall}
+
+
+def cpu_twin(model, build):
+    """`build(device)` with `model`'s weights on the CPU: built on the meta
+    device and given storage on the CPU, so that no initializer runs before
+    the weights are copied in."""
+    cpu = build("meta").to_empty(device="cpu")
     cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()}, strict=True)
+    return cpu
+
+
+class tf32_off:
+    """TF32 off for both matmuls and cuDNN inside the block; the flags as
+    they were after it (the other phases run under torch's defaults)."""
+
+    def __enter__(self):
+        self.saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+
+    def __exit__(self, *exc):
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = self.saved
+
+
+class SharedAttnMask:
+    """The masked decoder's attention masks for a card-vs-CPU comparison.
+    Each layer's mask is sigmoid(m) < 0.5 for the downsampled mask logits m,
+    and float32 rounding can put an m that lies near 0 on either side, so a
+    near-tie blocks a position on one side and not on the other (the weights
+    come from the nondeterministic training steps, so such a tie shows up in
+    some runs and not others). While active, the CPU pass records each mask
+    and the card pass takes the CPU's, as `SharedMatching` does for the
+    matching.
+
+    The card's own mask is still computed and held to what a tie cannot
+    break: with delta the largest |m_card - m_cpu| of the call, a position
+    may be blocked on one side only where |m_cpu| <= delta. A near-tie
+    passes; a wrong mask fails."""
+
+    def __init__(self, tag: str, cpu, card):
+        self.tag, self.models = tag, (cpu, card)
+        self.recorded, self.replay = [], None
+        self.positions = self.flipped = 0
+        self.tightest = 0.0  # the largest |m_cpu| at a flipped position
+
+    def __enter__(self):
+        for m in self.models:
+            heads = m.sem_seg_head.predictor._prediction_heads
+            m.sem_seg_head.predictor._prediction_heads = (
+                lambda *a, heads=heads: self._heads(heads, *a))
+        return self
+
+    def __exit__(self, *exc):
+        for m in self.models:
+            del m.sem_seg_head.predictor._prediction_heads
+
+    def card_pass(self):
+        self.replay = list(self.recorded)
+
+    def _heads(self, heads, output, mask_features, target_size):
+        import torch.nn.functional as F
+
+        logits, masks, attn_mask = heads(output, mask_features, target_size)
+        small = F.interpolate(masks.detach(), size=target_size, mode="bilinear",
+                              align_corners=False, antialias=False).reshape(attn_mask.shape)
+        if self.replay is None:
+            self.recorded.append((small.float().cpu(), attn_mask.cpu()))
+            return logits, masks, attn_mask
+        small_cpu, want = self.replay.pop(0)
+        delta = float((small.float().cpu() - small_cpu).abs().max())
+        flips = attn_mask.cpu() != want
+        self.positions += want.numel()
+        self.flipped += int(flips.sum())
+        if bool(flips.any()):
+            worst = float(small_cpu[flips].abs().max())
+            if worst > delta:
+                raise AssertionError(f"[{self.tag}] the card's attention mask differs from the "
+                                     f"CPU's where |m_cpu| = {worst:.3e}, beyond the calls' "
+                                     f"largest |m_card - m_cpu| {delta:.3e}")
+            self.tightest = max(self.tightest, worst)
+        return logits, masks, want.to(attn_mask.device)
+
+    def report(self) -> str:
+        return (f"the card's own attention masks blocked {self.flipped} of {self.positions} "
+                f"positions otherwise than the CPU's, each a near-tie (largest |m_cpu| at "
+                f"one {self.tightest:.3e}); both sides took the CPU's masks")
+
+
+def phase_card_vs_cpu(model, cpu, tag: str = "card-vs-cpu", frames: int = 1) -> dict:
+    """The inference forward on 1 video x `frames` x 224^2, card against the
+    CPU twin `cpu` (same weights), TF32 off, the CPU's attention masks on
+    both sides (`SharedAttnMask`)."""
+    rng = np.random.RandomState(SEED + 1)
+    images = rng.randint(0, 256, (1, frames, SIZE, SIZE, 3)).astype(np.float32)
+    mel = rng.randn(1, frames, 96, 64).astype(np.float32)
+    pre = rng.randint(0, 256, (1, frames, SIZE, SIZE, 3)).astype(np.float32)
     cpu.eval()
     model.eval()
     outs = {}
-    with torch.inference_mode():
+    with torch.inference_mode(), tf32_off(), SharedAttnMask(tag, cpu, model) as shared:
         for name, m in (("cpu", cpu), ("gpu", model)):
+            if name == "gpu":
+                shared.card_pass()
             d = next(m.parameters()).device
             o = m(*(torch.from_numpy(a).to(d) for a in (images, mel, pre)))
             outs[name] = {k: o[k].float().cpu().numpy() for k in ("pred_logits", "pred_masks")}
+    log(f"[{tag}] {shared.report()}")
+    errs = {"attn_mask_flips": shared.flipped}
     for k in ("pred_logits", "pred_masks"):
         a, b = outs["gpu"][k], outs["cpu"][k]
-        log(f"[card-vs-cpu] {k} {a.shape}: max_abs_err {float(np.abs(a - b).max()):.3e} "
+        errs[k] = float(np.abs(a - b).max())
+        log(f"[{tag}] {k} {a.shape}: max_abs_err {errs[k]:.3e} "
             f"(max|cpu| {float(np.abs(b).max()):.3f}; atol {SLICE_ATOL}, rtol {SLICE_RTOL}, TF32 off)")
         np.testing.assert_allclose(a, b, atol=SLICE_ATOL, rtol=SLICE_RTOL)
+    return errs
 
 
 class SharedMatching:
@@ -1325,7 +1520,7 @@ class SharedMatching:
             q_card, q_cpu = assign_card[n, ks], assign_cpu[n, ks]
             if (len(set(q_card.tolist())) != len(ks) or int(q_card.min()) < 0
                     or int(q_card.max()) >= Q):
-                raise AssertionError(f"[train-card-vs-cpu] the card's matcher assigned queries "
+                raise AssertionError(f"[matching] the card's matcher assigned queries "
                                      f"{q_card.tolist()} to the {len(ks)} valid slots of a frame")
             delta = float((cost_card[n][:, ks] - cost_cpu[n][:, ks]).abs().max())
             optimum = float(cost_cpu[n, q_cpu, ks].sum())
@@ -1336,7 +1531,7 @@ class SharedMatching:
             rounding = max(1e-5 * max(1.0, abs(optimum)), (K - 1) * 2.0**-24 * magnitude)
             allowed = 2 * len(ks) * delta + rounding
             if got - optimum > allowed:
-                raise AssertionError(f"[train-card-vs-cpu] the card's matching {q_card.tolist()} "
+                raise AssertionError(f"[matching] the card's matching {q_card.tolist()} "
                                      f"costs {got:.6f} under the CPU's costs, the CPU optimum "
                                      f"{q_cpu.tolist()} {optimum:.6f}: {got - optimum:.3e} above "
                                      f"it, more than 2 K_v delta + rounding = {allowed:.3e} "
@@ -1347,21 +1542,17 @@ class SharedMatching:
                 self.tightest = (got - optimum, allowed, delta)
 
 
-def phase_train_card_vs_cpu(model) -> dict:
-    """The training losses and every parameter's gradient, card against CPU:
-    full width, 1 video x 5 frames x 128^2, TF32 off, dropout off (eval
-    mode), the same weights, the same injected draws and the CPU's matching
-    (`SharedMatching`), exact top-k on both sides (the CPU always takes
+def phase_train_card_vs_cpu(model, cpu, tag: str = "train-card-vs-cpu") -> dict:
+    """The training losses and every parameter's gradient, card against the
+    CPU twin `cpu`: full width, 1 video x 5 frames x 128^2, TF32 off,
+    dropout and drop path off (eval mode), the same weights, the same
+    injected draws, the CPU's matching (`SharedMatching`) and attention masks
+    (`SharedAttnMask`), exact top-k on both sides (the CPU always takes
     it)."""
     from combo_avs_torch.losses.criterion import SetCriterion, build_weight_dict, total_loss
-    from combo_avs_torch.models.meta_arch import MaskFormer
     from combo_avs_torch.train.train_step import compute_losses
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     dev = next(model.parameters()).device
-    cpu = MaskFormer(device="cpu")
-    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()}, strict=True)
     batch = {k: v.cpu() for k, v in train_batch(1, TRAIN_VS_CPU_SIZE, dev, seed=SEED + 2).items()}
     crit = SetCriterion(exact_topk=True)
     matching = crit.matcher = SharedMatching(crit.matcher)
@@ -1369,30 +1560,33 @@ def phase_train_card_vs_cpu(model) -> dict:
     g = torch.Generator().manual_seed(SEED + 3)
     draws = [crit.draw(g, T, TRAIN_K) for _ in range(DEC_OUTPUTS)]
     res = {}
+    shared = SharedAttnMask(tag, cpu, model)
     for name, m in (("cpu", cpu), ("gpu", model)):
         d = next(m.parameters()).device
         if name == "gpu":
             matching.replay = list(matching.recorded)
+            shared.card_pass()
         m.eval()
         m.zero_grad(set_to_none=True)
         t0 = time.perf_counter()
-        losses = compute_losses(m, crit, batch, torch.Generator(device=d),
-                                draws=[tuple(t.to(d) for t in dr) for dr in draws])
-        total_loss(losses, wd).backward()
+        with tf32_off(), shared:
+            losses = compute_losses(m, crit, batch, torch.Generator(device=d),
+                                    draws=[tuple(t.to(d) for t in dr) for dr in draws])
+            total_loss(losses, wd).backward()
         grads = {n: p.grad.detach().cpu().double() for n, p in m.named_parameters()
                  if p.grad is not None}
         res[name] = ({k: float(v.detach()) for k, v in losses.items()}, grads)
-        log(f"[train-card-vs-cpu] {name}: losses and gradients in {time.perf_counter() - t0:.1f} s")
+        log(f"[{tag}] {name}: losses and gradients in {time.perf_counter() - t0:.1f} s")
     model.zero_grad(set_to_none=True)
     excess, allowed, delta = matching.tightest
-    log(f"[train-card-vs-cpu] the card's matcher chose another query for {matching.differ} of "
+    log(f"[{tag}] the card's matcher chose another query for {matching.differ} of "
         f"{matching.slots} slots (a near-tie in the cost); both sides took the CPU's matching. "
         f"Its own assignment in each of {matching.frames} frames: distinct queries, cost under "
         f"the CPU's costs within the bound; tightest frame {excess:.3e} above the CPU optimum "
-        f"against a bound of {allowed:.3e} (delta {delta:.3e})")
+        f"against a bound of {allowed:.3e} (delta {delta:.3e}); {shared.report()}")
     (lc, gc), (lg, gg) = res["cpu"], res["gpu"]
     if set(gc) != set(gg) or set(lc) != set(lg):
-        raise AssertionError("[train-card-vs-cpu] different losses or gradient sets")
+        raise AssertionError(f"[{tag}] different losses or gradient sets")
     loss_err = {k: abs(lg[k] - lc[k]) / max(1.0, abs(lc[k])) for k in lc}
     worst = max(loss_err, key=loss_err.get)
     norm_all = float(torch.sqrt(sum((gc[n] ** 2).sum() for n in gc)))
@@ -1402,13 +1596,13 @@ def phase_train_card_vs_cpu(model) -> dict:
     all_rl2 = float(torch.sqrt(sum(((gg[n] - gc[n]) ** 2).sum() for n in gc))) / norm_all
     worst_leaf = max(rl2, key=rl2.get)
     median = float(np.median(list(rl2.values())))
-    log(f"[train-card-vs-cpu] {len(lc)} losses, worst {worst} rel err {loss_err[worst]:.3e} "
+    log(f"[{tag}] {len(lc)} losses, worst {worst} rel err {loss_err[worst]:.3e} "
         f"(tol {LOSS_RTOL_CPU}); {len(gc)} gradient leaves: worst {worst_leaf} rel-L2 "
         f"{rl2[worst_leaf]:.3e} (tol {GRAD_RL2_LEAF}), median {median:.3e} (tol "
         f"{GRAD_RL2_MEDIAN}), whole gradient {all_rl2:.3e} (tol {GRAD_RL2_ALL}); TF32 off")
     if (loss_err[worst] > LOSS_RTOL_CPU or rl2[worst_leaf] > GRAD_RL2_LEAF
             or median > GRAD_RL2_MEDIAN or all_rl2 > GRAD_RL2_ALL):
-        raise AssertionError("[train-card-vs-cpu] card and CPU disagree beyond the tolerances")
+        raise AssertionError(f"[{tag}] card and CPU disagree beyond the tolerances")
     return {"loss_rel_err": loss_err[worst], "grad_rl2_leaf": rl2[worst_leaf],
             "grad_rl2_median": median, "grad_rl2_all": all_rl2}
 
@@ -1439,6 +1633,106 @@ def rank_against_library(rows) -> list:
     return ranked
 
 
+def profile_window(tag: str, fn, wall_ms: float, calls: int = 2) -> dict:
+    """The device's view of `calls` more calls of `fn`, under torch.profiler
+    (CUDA activity only): kernel ms per call, that share of `wall_ms` (the
+    unprofiled call's wall, measured before), device events per call, and
+    the kernels with the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+              and not e.is_user_annotation and "Memcpy" not in e.name]
+    dev_ms = sum(e.device_time for e in events) / 1e3 / calls
+    by_name = {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3 / calls
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    log(f"[{tag}] profiler, {calls} calls: device kernel time {dev_ms:.2f} ms a call, "
+        f"{dev_ms / wall_ms:.3f} of the unprofiled call's {wall_ms:.2f} ms wall; "
+        f"{len(events) / calls:.0f} kernels a call; most device time: "
+        + "; ".join(f"{n[:60]} {ms:.2f} ms" for n, ms in top))
+    return {"device_ms": dev_ms, "busy_share": dev_ms / wall_ms, "kernels": len(events) / calls,
+            "top": top}
+
+
+def phase_pvt(smi: str, dev: torch.device, walls: dict) -> dict:
+    """COMBO-PVTv2-B5 at full depth and width (`build_model` of the shipped
+    avs_s4 config, seeded weights): the eval slice (pvt-slice), training
+    steps (pvt-train), card against CPU on the trained weights
+    (pvt-card-vs-cpu: the eval forward on 1 x 5 x 224^2, losses and
+    gradients on 1 x 5 x 128^2), `train_net` with an evaluation, a
+    checkpoint and a resume (pvt-entry), and `pred` on the MS3 config with
+    the model_best.pth it wrote (pred-ms3)."""
+    import tempfile
+
+    from combo_avs_torch.config import setup_cfg
+    from combo_avs_torch.models.layers import init_weights
+    from combo_avs_torch.models.meta_arch import build_model
+
+    cfg = setup_cfg(PVT_CONFIGS["s4"])
+    t0 = time.perf_counter()
+    model = init_weights(build_model(cfg), seed=SEED)  # MODEL.DEVICE "cuda": the card
+    if next(model.parameters()).device != dev:
+        raise AssertionError("build_model did not build on the card")
+    depths = [len(getattr(model.backbone, f"block{i}")) for i in range(1, 5)]
+    tower = sum(p.numel() for p in model.backbone.parameters())
+    if depths != [3, 6, 40, 3] or not 78e6 < tower < 85e6:
+        raise AssertionError(f"[pvt-model] depths {depths}, {tower} parameters a tower")
+    model.eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    walls["pvt-model"] = time.perf_counter() - t0
+    log(f"[pvt-model] build_model({os.path.relpath(PVT_CONFIGS['s4'], REPO)}): {n_params} "
+        f"parameters ({tower} a PVTv2-B5 tower, depths {depths}), seeded init on "
+        f"{torch.cuda.get_device_name(0)} in {walls['pvt-model']:.1f} s")
+    out = {}
+    t0 = time.perf_counter()
+    out["slice"] = phase_slice(model, smi, tag="pvt-slice", profile=True)
+    walls["pvt-slice"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["train"] = phase_train(model, smi, tag="pvt-train", profile=True)
+    walls["pvt-train"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    twin = cpu_twin(model, lambda d: build_model(cfg, device=d))
+    out["card_vs_cpu"] = phase_card_vs_cpu(model, twin, tag="pvt-card-vs-cpu", frames=T)
+    out["train_card_vs_cpu"] = phase_train_card_vs_cpu(model, twin, tag="pvt-train-card-vs-cpu")
+    walls["pvt-card-vs-cpu"] = time.perf_counter() - t0
+    del model, twin
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as keep:
+        t0 = time.perf_counter()
+        out["entry"] = phase_train_entry(smi, out["train"]["s_per_step"], PVT_CONFIGS["s4"],
+                                         tag="pvt-entry", keep_dir=keep)
+        walls["pvt-entry"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["pred_ms3"] = phase_pred_ms3(smi, os.path.join(keep, "model_best.pth"))
+        walls["pred-ms3"] = time.perf_counter() - t0
+    tr, en = out["train"], out["entry"]
+    out["summary"] = {
+        "model": {"config": os.path.relpath(PVT_CONFIGS["s4"], REPO), "parameters": n_params,
+                  "tower_parameters": tower, "depths": depths},
+        "eval_fps": out["slice"]["fps"], "eval_k1_plans": out["slice"]["k1_plans"],
+        "eval_profile": out["slice"]["profile"], "train_profile": out["train"]["profile"],
+        "eval_k7_plans": out["slice"]["k7_plans"],
+        "train": {"s_per_step": tr["s_per_step"], "step_times_s": tr["times"],
+                  "max_memory_allocated": tr["peak_bytes"],
+                  "launches_per_step": {k: v // (1 + TRAIN_STEPS)
+                                        for k, v in tr["launches"].items()},
+                  "shape": f"{TRAIN_B}x{T}x{SIZE}^2 K={TRAIN_K} fp32"},
+        "card_vs_cpu": out["card_vs_cpu"], "train_card_vs_cpu": out["train_card_vs_cpu"],
+        "train_entry": {"s_per_iter_median": en["s_per_iter_median"],
+                        "data_time_median": en["data_time_median"],
+                        "rows": en["first"]["rows"] + en["resumed"]["rows"],
+                        "evals": en["first"]["evals"], "eval_timing": en["first"]["eval_timing"]},
+        "pred_ms3": {k: out["pred_ms3"][k] for k in ("metrics", "timing", "wall_s")},
+    }
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1447,6 +1741,15 @@ def main(argv=None) -> int:
                     help="phases 1-3 only (build, each kernel against its plain version, "
                          "timings), for comparing two trees; prints no status line")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
+    walls = {}
+
+    def timed(name, fn, *a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        walls[name] = time.perf_counter() - t0
+        return out
+
     smi = phase_env()
     dev = torch.device("cuda", 0)
     phase_build()
@@ -1465,6 +1768,7 @@ def main(argv=None) -> int:
     from combo_avs_torch.models.layers import init_weights
     from combo_avs_torch.models.meta_arch import MaskFormer
 
+    walls["kernels"] = time.perf_counter() - t_start
     t0 = time.perf_counter()
     model = init_weights(MaskFormer(), seed=SEED)  # builds on the current CUDA device
     if next(model.parameters()).device != dev:
@@ -1473,17 +1777,29 @@ def main(argv=None) -> int:
     n_params = sum(p.numel() for p in model.parameters())
     log(f"[model] MaskFormer() COMBO-R50 S4: {n_params} parameters, seeded init on "
         f"{torch.cuda.get_device_name(0)} in {time.perf_counter() - t0:.1f} s")
-    sl = phase_slice(model, smi)
-    ee = phase_eval_entry(model, smi)
-    tr = phase_train(model, smi)
-    te = phase_train_entry(smi, tr["s_per_step"])
-    phase_card_vs_cpu(model)
-    phase_train_card_vs_cpu(model)
-    # last, so that the card-vs-CPU phases see the weights of the 4 steps above
-    tf = phase_train_fallback(model)
+    sl = timed("slice", phase_slice, model, smi)
+    ee = timed("eval-entry", phase_eval_entry, model, smi)
+    tr = timed("train", phase_train, model, smi)
+    te = timed("train-entry", phase_train_entry, smi, tr["s_per_step"], R50_CONFIG)
+    # the card-vs-CPU phases see the weights of the training steps above
+    twin = cpu_twin(model, lambda d: MaskFormer(device=d))
+    timed("card-vs-cpu", phase_card_vs_cpu, model, twin)
+    timed("train-card-vs-cpu", phase_train_card_vs_cpu, model, twin)
+    tf = timed("train-k6", phase_train_fallback, model)
+    del model, twin
+    torch.cuda.empty_cache()
+    pvt = phase_pvt(smi, dev, walls)
 
     ev, tl, fb, tn = sl["launches"], tr["launches"], tf["launches"], te["launches"]
-    entry = {k: ee["fp32"]["launches"][k] + ee["bf16"]["launches"][k] for k in ("k1", "k7")}
+    entry = {k: ee["fp32"]["launches"][k] + ee["bf16"]["launches"][k] for k in ev}
+    paths = {"eval": ev, "eval_entry": entry, "train": tl, "train_entry": tn,
+             "train_fallback": fb, "pvt_eval": pvt["slice"]["launches"],
+             "pvt_train": pvt["train"]["launches"], "pvt_train_entry": pvt["entry"]["launches"],
+             "pvt_pred_ms3": pvt["pred_ms3"]["launches"]}
+
+    def by_path(k):
+        return {name: counts[k] for name, counts in paths.items()}
+
     fwd = ps["fwd"]
     per_layer = {k: sum(s[k] for s in fwd) for k in ("ms", "call_ms", "host_us", "plain_ms",
                                                      "library_ms", "library_call_ms",
@@ -1492,11 +1808,11 @@ def main(argv=None) -> int:
     per_layer.update({k: "+".join(sorted({s[k] for s in fwd}))
                       for k in ("device_source", "library_source")})
     ranked = rank_against_library(with_library)
+    walls["total"] = time.perf_counter() - t_start
+    log("[wall] " + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()) + f" on {smi}")
     kernels = [
         kernel_entry("ms_deform_attn_fwd", "combo_avs_torch/csrc/ms_deform_attn_fwd.cu",
-                     REPLACES["k1"], {"eval": ev["k1"], "eval_entry": entry["k1"],
-                                       "train": tl["k1"], "train_entry": tn["k1"],
-                                       "train_fallback": fb["k1"]}, k1["fp32"],
+                     REPLACES["k1"], by_path("k1"), k1["fp32"],
                      shape="value [20,1029,8,32] fp32", plan=k1["fp32"]["chosen"],
                      eval_launches_by_plan=sl["k1_plans"],
                      max_abs_err_bf16=k1["bf16"]["max_abs_err"],
@@ -1506,15 +1822,12 @@ def main(argv=None) -> int:
                      plans_ms={name: {kn: v["ms"] for kn, v in k1[name]["plans"].items()}
                                for name in ("fp32", "bf16", "train_fp32", "train_bf16")}),
         kernel_entry("ms_deform_attn_bwd", "combo_avs_torch/csrc/ms_deform_attn_bwd.cu",
-                     REPLACES["k2"], {"eval": ev["k2"], "train": tl["k2"],
-                                       "train_entry": tn["k2"], "train_fallback": fb["k2"]},
-                     k2["level_slice"],
+                     REPLACES["k2"], by_path("k2"), k2["level_slice"],
                      shape="value [40,1029,8,32] fp32", plan="level_slice",
                      **{f"global_{k}": k2["global"][k] for k in ("max_abs_err", "ms", "call_ms",
                                                                  "host_us", "device_source")}),
         kernel_entry("point_sample_fwd", "combo_avs_torch/csrc/point_sample_fwd.cu",
-                     REPLACES["k3"], {"eval": ev["k3"], "train": tl["k3"],
-                                       "train_entry": tn["k3"], "train_fallback": fb["k3"]},
+                     REPLACES["k3"], by_path("k3"),
                      dict(per_layer, max_abs_err=max(s["max_abs_err"] for s in fwd),
                           bound_by="bytes" if per_layer["bytes"] / PEAK_BYTES_PER_S
                           >= per_layer["flops"] / PEAK_FP32_PER_S else "operations"),
@@ -1524,22 +1837,18 @@ def main(argv=None) -> int:
                                                "bound_ms", "bound_by", "max_abs_err")}
                             for s in fwd]),
         kernel_entry("point_sample_bwd_dimg", "combo_avs_torch/csrc/point_sample_bwd.cu",
-                     REPLACES["k4"], {"eval": ev["k4_dimg"], "train": tl["k4_dimg"],
-                                       "train_entry": tn["k4_dimg"],
-                                       "train_fallback": fb["k4_dimg"]}, ps["dimg"],
+                     REPLACES["k4"], by_path("k4_dimg"), ps["dimg"],
                      shape="dout [120,12544,1] into [120,56,56,1]", plan="staged",
                      train_launches_by_plan=tr["dimg_plans"],
                      plan_detail=ps["dimg"]["plan"],
                      **{f"global_{k}": ps["dimg"]["global_plan"][k]
                         for k in ("max_abs_err", "ms", "call_ms", "host_us", "device_source")},
                      also_replaces=REPLACES["k4_dxy"],
-                     dxy_launches={"eval": ev["k4_dxy"], "train": tl["k4_dxy"],
-                                   "train_entry": tn["k4_dxy"], "train_fallback": fb["k4_dxy"]},
+                     dxy_launches=by_path("k4_dxy"),
                      **{f"dxy_{k}": ps["dxy"][k] for k in ("max_abs_err", *TIMING_KEYS,
                                                            "bound_ms", "bound_by")}),
         kernel_entry("seminf_fwd", "combo_avs_torch/csrc/seminf_fwd.cu", REPLACES["k7"],
-                     {"eval": ev["k7"], "eval_entry": entry["k7"], "train": tl["k7"],
-                      "train_entry": tn["k7"]}, k7["fp32"],
+                     by_path("k7"), k7["fp32"],
                      shape="mask [20,100,56,56] fp32 -> [20,2,224,224]", plan="patch",
                      plan_detail=k7["fp32"]["plan"], eval_launches_by_plan=sl["k7_plans"],
                      resize_ms=k7["fp32"]["resize_ms"],
@@ -1551,8 +1860,7 @@ def main(argv=None) -> int:
                         for name, sfx in (("fp32", ""), ("bf16", "_bf16"))
                         for k in ("max_abs_err", "ms", "call_ms", "host_us")}),
         kernel_entry("gather_points", "combo_avs_torch/csrc/gather.cu", REPLACES["k6"],
-                     {"eval": ev["k6"], "train": tl["k6"], "train_entry": tn["k6"],
-                      "train_fallback": fb["k6"]}, k6,
+                     by_path("k6"), k6,
                      shape="src [120,37632,2] fp32, idx [120,9408] int64"),
     ]
     log(json.dumps({"train": {"s_per_step": tr["s_per_step"], "step_times_s": tr["times"],
@@ -1566,7 +1874,8 @@ def main(argv=None) -> int:
                     "eval_fps": sl["fps"], "card": smi,
                     "slower_than_library": [r[0] for r in ranked if r[3] > 1],
                     "eval_entry": {k: {"metrics": v["metrics"], "timing": v["timing"]}
-                                   for k, v in ee.items()}}))
+                                   for k, v in ee.items()},
+                    "pvt": pvt["summary"], "walls_s": walls}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,13 +1,16 @@
-"""Dataset catalogs: walk the AVSBench S4 directory layout and register
-per-video records.
+"""Dataset catalogs: walk the AVSBench S4 and MS3 directory layouts and
+register per-video records.
 
-Port of the S4 part of `combo_avs_tpu/data/catalogs.py`
-(`load_avss4_records`, `register_all`; ref:
-models/data/datasets/register_avss4_sem.py): visual_frames/<split>/
-<category>/<video>/*.png, gt_masks alike, audio_log_mel/<split>/<category>/
-<video>.pkl and pre_SAM_mask/<split>/<category>/<video>/*_mask_color.png;
-the train split annotates only the first frame (ref :18,49-52). Records are
-plain dicts, equal key for key to the JAX package's. MS3 and AVSS are not
+Port of the S4 and MS3 parts of `combo_avs_tpu/data/catalogs.py`
+(`load_avss4_records`, `load_avsms3_records`, `register_all`):
+* S4 (ref: models/data/datasets/register_avss4_sem.py): visual_frames/
+  <split>/<category>/<video>/*.png, gt_masks alike, audio_log_mel/<split>/
+  <category>/<video>.pkl and pre_SAM_mask/<split>/<category>/<video>/
+  *_mask_color.png; the train split annotates only the first frame
+  (ref :18,49-52);
+* MS3 (ref: register_avsms3_sem.py): the same without the category level,
+  every frame annotated.
+Records are plain dicts, equal key for key to the JAX package's. AVSS is not
 ported yet.
 """
 
@@ -19,8 +22,9 @@ from typing import Callable, Dict, List, Optional
 DatasetCatalog: Dict[str, Callable[[], List[dict]]] = {}
 MetadataCatalog: Dict[str, dict] = {}
 
-S4_METADATA = {"stuff_classes": ["background", "object"], "ignore_label": 255,
-               "evaluator_type": "sem_seg", "num_frames": 5}
+# S4 and MS3 alike
+BINARY_METADATA = {"stuff_classes": ["background", "object"], "ignore_label": 255,
+                   "evaluator_type": "sem_seg", "num_frames": 5}
 
 
 def register(name: str, fn: Callable[[], List[dict]], metadata: dict) -> None:
@@ -65,19 +69,61 @@ def load_avss4_records(root: str, split: str, pre_mask_root: Optional[str] = Non
     return records
 
 
+def load_avsms3_records(root: str, split: str, pre_mask_root: Optional[str] = None) -> List[dict]:
+    """root: .../Multi-sources/ms3_data. Returns one record per video, all 5
+    frames annotated."""
+    frame_root = os.path.join(root, "visual_frames", split)
+    records = []
+    for video in sorted(os.listdir(frame_root)):
+        vdir = os.path.join(frame_root, video)
+        if not os.path.isdir(vdir):
+            continue
+        mask_dir = os.path.join(root, "gt_masks", split, video)
+        rec = {
+            "video": video,
+            "file_names": _png_sorted(vdir),
+            "sem_seg_file_names": _png_sorted(mask_dir) if os.path.isdir(mask_dir) else [],
+            "audio_file_name": os.path.join(root, "audio_log_mel", split, f"{video}.pkl"),
+            "num_frames": 5,
+            "gt_temporal_mask_flag": [1] * 5,
+            "vid_temporal_mask_flag": [1] * 5,
+        }
+        if pre_mask_root:
+            pdir = os.path.join(pre_mask_root, split, video)
+            if os.path.isdir(pdir):
+                rec["pre_mask_file_names"] = [
+                    p for p in _png_sorted(pdir) if p.endswith("_mask_color.png")]
+        records.append(rec)
+    return records
+
+
+def _first_dir(*candidates: Optional[str]) -> Optional[str]:
+    return next((c for c in candidates if c and os.path.isdir(c)), None)
+
+
 def register_all(datasets_root: str) -> None:
-    """Register avss4_sem_seg_{train,val,test}, with the pre-SAM Maskiges
-    COMBO takes, under a dataset root: either a parent holding
-    Single-source/s4_data, or the reference's per-benchmark root that points
-    at .../Single-source itself (ref: register_avss4_sem.py:117-119)."""
+    """Register avss4_sem_seg_{train,val,test} and avsms3_sem_seg_{train,
+    val,test}, with the pre-SAM Maskiges COMBO takes, under a dataset root:
+    either a parent holding Single-source/s4_data and Multi-sources/
+    ms3_data, or the reference's per-benchmark root that points at
+    .../Single-source or .../Multi-sources itself (ref:
+    register_avss4_sem.py:117-119)."""
     norm = datasets_root.rstrip("/")
-    s4_root = next((c for c in (
-        os.path.join(datasets_root, "Single-source", "s4_data"),
-        os.path.join(norm, "s4_data") if norm.endswith("Single-source") else None,
-    ) if c and os.path.isdir(c)), None)
-    if s4_root is None:
-        return
-    pre = os.path.join(s4_root, "pre_SAM_mask")
-    for split in ("train", "val", "test"):
-        register(f"avss4_sem_seg_{split}",
-                 lambda s=split: load_avss4_records(s4_root, s, pre), dict(S4_METADATA))
+    roots = {
+        "avss4": (load_avss4_records, _first_dir(
+            os.path.join(datasets_root, "Single-source", "s4_data"),
+            os.path.join(norm, "s4_data") if norm.endswith("Single-source") else None)),
+        "avsms3": (load_avsms3_records, _first_dir(
+            os.path.join(datasets_root, "Multi-sources", "ms3_data"),
+            os.path.join(norm, "ms3_data") if norm.endswith("Multi-sources") else None)),
+    }
+    for bench, (load, root) in roots.items():
+        if root is None:
+            continue
+        pre = os.path.join(root, "pre_SAM_mask")
+        for split in ("train", "val", "test"):
+            # bind the loader, root and Maskige root now: they are the loop's
+            # names, and a late-binding closure would give every benchmark's
+            # records the last one's
+            register(f"{bench}_sem_seg_{split}",
+                     lambda s=split, f=load, r=root, p=pre: f(r, s, p), dict(BINARY_METADATA))

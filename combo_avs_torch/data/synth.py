@@ -1,15 +1,18 @@
-"""Synthetic AVSBench S4 tree on disk, written without cv2.
+"""Synthetic AVSBench S4 and MS3 trees on disk, written without cv2.
 
 The S4 part of `scripts/make_synth_dataset.py` (`make_s4` and its helpers),
 with the port's PNG encoder: 5-frame videos of frames, Maskiges, GT masks and
 pickled log-mels in the exact layout `data/catalogs.py` walks
-(ref: models/data/datasets/register_avss4_sem.py:17-58). The content is
+(ref: models/data/datasets/register_avss4_sem.py:17-58); and `make_ms3`, the
+same videos in the MS3 layout (no category level, all five frames
+annotated in every split; ref: register_avsms3_sem.py). The content is
 learnable, not noise: each of 10 categories is a (shape, colour, audio band)
 triple drifting over a smooth textured background. The background is a
 bicubic upsample of 14 x 14 noise, as the JAX package's script makes it,
 though not bit for bit (PyTorch's bicubic, not cv2's).
 
-    python -m combo_avs_torch.data.synth --root DIR [--s4-train 96] [--s4-val 48] [--size 224]
+    python -m combo_avs_torch.data.synth --root DIR [--s4-train 96] [--s4-val 48] \
+        [--ms3-train 0] [--ms3-val 0] [--size 224]
 """
 
 from __future__ import annotations
@@ -93,40 +96,61 @@ def _write(path: str, img: np.ndarray) -> None:
     write_png(path, img)
 
 
-def make_s4(root: str, n_train: int, n_val: int, size: int = FRAME) -> str:
-    """Write the S4 train and val splits under `root`; returns the s4_data
-    directory. Train videos carry GT for their first frame only."""
-    s4 = os.path.join(root, "Single-source", "s4_data")
+def _make(data: str, n_train: int, n_val: int, size: int, by_category: bool,
+          train_gt: int) -> str:
+    """Write train and val splits of 5-frame videos under `data`, in a
+    category directory a video when `by_category`; train videos carry GT for
+    their first `train_gt` frames, val videos for all five."""
     rng = np.random.RandomState(0)
     for split, n in (("train", n_train), ("val", n_val)):
         for v in range(n):
             cat_id = v % N_CATEGORIES
-            cat = f"cat{cat_id:02d}"
             vid = f"{split}_v{v:04d}"
+            rel = os.path.join(split, f"cat{cat_id:02d}", vid) if by_category else os.path.join(
+                split, vid)
             frames, masks, maskiges = _video_frames(rng, cat_id, 5, size)
-            n_gt = 1 if split == "train" else 5
+            n_gt = train_gt if split == "train" else 5
             for t in range(5):
                 name = f"{vid}_{t + 1}"
-                _write(os.path.join(s4, "visual_frames", split, cat, vid, f"{name}.png"), frames[t])
-                _write(os.path.join(s4, "pre_SAM_mask", split, cat, vid, f"{name}_mask_color.png"),
+                _write(os.path.join(data, "visual_frames", rel, f"{name}.png"), frames[t])
+                _write(os.path.join(data, "pre_SAM_mask", rel, f"{name}_mask_color.png"),
                        maskiges[t])
                 if t < n_gt:
-                    _write(os.path.join(s4, "gt_masks", split, cat, vid, f"{name}.png"), masks[t])
-            mel_path = os.path.join(s4, "audio_log_mel", split, cat, f"{vid}.pkl")
+                    _write(os.path.join(data, "gt_masks", rel, f"{name}.png"), masks[t])
+            mel_path = os.path.join(data, "audio_log_mel", f"{rel}.pkl")
             os.makedirs(os.path.dirname(mel_path), exist_ok=True)
             with open(mel_path, "wb") as f:
                 pickle.dump(_mel(rng, cat_id, 5), f)
-    return s4
+    return data
+
+
+def make_s4(root: str, n_train: int, n_val: int, size: int = FRAME) -> str:
+    """Write the S4 train and val splits under `root`; returns the s4_data
+    directory. Train videos carry GT for their first frame only."""
+    return _make(os.path.join(root, "Single-source", "s4_data"), n_train, n_val, size,
+                 by_category=True, train_gt=1)
+
+
+def make_ms3(root: str, n_train: int, n_val: int, size: int = FRAME) -> str:
+    """Write the MS3 train and val splits under `root`; returns the ms3_data
+    directory. Every frame of every video carries GT."""
+    return _make(os.path.join(root, "Multi-sources", "ms3_data"), n_train, n_val, size,
+                 by_category=False, train_gt=5)
 
 
 def main() -> None:
-    ap = argparse.ArgumentParser(description="write a synthetic AVSBench S4 tree")
+    ap = argparse.ArgumentParser(description="write synthetic AVSBench S4 and MS3 trees")
     ap.add_argument("--root", required=True)
     ap.add_argument("--s4-train", type=int, default=96)
     ap.add_argument("--s4-val", type=int, default=48)
+    ap.add_argument("--ms3-train", type=int, default=0)
+    ap.add_argument("--ms3-val", type=int, default=0)
     ap.add_argument("--size", type=int, default=FRAME)
     args = ap.parse_args()
-    print(make_s4(args.root, args.s4_train, args.s4_val, args.size))
+    if args.s4_train or args.s4_val:
+        print(make_s4(args.root, args.s4_train, args.s4_val, args.size))
+    if args.ms3_train or args.ms3_val:
+        print(make_ms3(args.root, args.ms3_train, args.ms3_val, args.size))
 
 
 if __name__ == "__main__":

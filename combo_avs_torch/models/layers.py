@@ -103,6 +103,26 @@ class SqueezeExcite(nn.Module):
         return y[:, :, None, None]
 
 
+class DropPath(nn.Module):
+    """Stochastic depth: in training mode, zero a whole sample's residual
+    branch with probability `rate` and scale the survivors by 1 / (1 - rate)
+    (`combo_avs_tpu/models/layers.py::DropPath`, timm's). The rate comes with
+    each call, since each PVT block has its own, and the mask is drawn from
+    the call's `generator`, never from the global RNG. The identity in eval
+    mode and at rate 0."""
+
+    def forward(self, x: torch.Tensor, rate: float,
+                generator: Optional[torch.Generator]) -> torch.Tensor:
+        if not self.training or rate == 0.0:
+            return x
+        if generator is None:
+            raise ValueError("drop path in training mode needs an explicit torch.Generator")
+        keep = torch.rand((x.shape[0],) + (1,) * (x.dim() - 1), generator=generator,
+                          device=x.device) < 1.0 - rate
+        return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
+                                                                device=x.device))
+
+
 class MLP(nn.Module):
     """Multi-layer perceptron with ReLU between layers (the mask-embed head)."""
 

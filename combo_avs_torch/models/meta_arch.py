@@ -1,10 +1,10 @@
-"""MaskFormer meta-architecture (COMBO-R50, S4 late-fusion configuration).
+"""MaskFormer meta-architecture (COMBO-R50 and COMBO-PVTv2-B5, late fusion).
 
 Port of `combo_avs_tpu/models/meta_arch.py`: pixel mean/std normalization,
-frozen VGGish audio embedding, two ResNet towers (visual and the Siam-Encoder
-over the Maskige) joined by per-stage SE gates, and the MaskFormer head with
-late MHA-B fusion. Keeps the JAX package's layouts at the public surface:
-`forward(images [B, T, H, W, 3], audio_log_mel [B, T, 96, 64], pre_masks
+frozen VGGish audio embedding, two ResNet-50 or PVTv2-B5 towers (visual and
+the Siam-Encoder over the Maskige) joined by per-stage SE gates, and the
+MaskFormer head with late MHA-B fusion. Keeps the JAX package's layouts at
+the public surface: `forward(images [B, T, H, W, 3], audio_log_mel [B, T, 96, 64], pre_masks
 [B, T, H, W, 3], vid_temporal_mask [B, T])` -> `pred_logits [B*T, Q, C+1]`,
 `pred_masks [B*T, Q, H/4, W/4]` and the per-layer `aux_outputs`. Internally
 everything is NCHW. A `vid_temporal_mask` gates each frame's audio feature, as
@@ -16,8 +16,8 @@ the JAX model does: a frame whose flag is 0 gets a zero audio feature.
 The model is built on the current CUDA device unless the caller passes
 another `device` (the CPU tests pass "cpu"). The VGGish tower is frozen: it
 runs under `torch.no_grad()` (the JAX package's stop_gradient). In training
-mode the fusion's attention dropout draws from the `dropout_generator` that
-`forward` is given.
+mode the fusion's attention dropout and the PVT towers' drop path draw from
+the `dropout_generator` that `forward` is given.
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ from torch import nn
 
 from combo_avs_torch.models.head import MaskFormerHead
 from combo_avs_torch.models.layers import SqueezeExcite
+from combo_avs_torch.models.pvtv2 import B5_DEPTHS, DROP_PATH_RATE, PVTv2
 from combo_avs_torch.models.resnet import ResNet
 from combo_avs_torch.models.vggish import VGGish
 from combo_avs_torch.ops import seminf_cuda
@@ -49,9 +50,11 @@ def default_device(device: Optional[torch.device | str] = None) -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
-def _build_backbone(name: str) -> ResNet:
+def _build_backbone(name: str, pvt_depths: Sequence[int]) -> nn.Module:
     if name == "build_resnet_backbone":
         return ResNet(depth=50)
+    if name == "build_pvtv2_b5_backbone":
+        return PVTv2(depths=pvt_depths)
     if name == "tiny_resnet":
         # one bottleneck per stage, 8x narrower: the tiny test backbone
         return ResNet(depth=10, stem_out_channels=8, res2_out_channels=32)
@@ -75,12 +78,14 @@ class MaskFormer(nn.Module):
         audio_out_dim: int = 256,
         pre_sam_dim: Sequence[int] = (256, 512, 1024, 2048),
         vggish_width: float = 1.0,
+        # the PVT towers' depths; the JAX model's test knob (B5 unless a test cuts it)
+        pvt_depths: Sequence[int] = B5_DEPTHS,
         device: Optional[torch.device | str] = None,
     ):
         super().__init__()
         with default_device(device):
-            self.backbone = _build_backbone(backbone_name)
-            self.pre_sam_backbone = _build_backbone(backbone_name)
+            self.backbone = _build_backbone(backbone_name, pvt_depths)
+            self.pre_sam_backbone = _build_backbone(backbone_name, pvt_depths)
             self.audio_backbone = VGGish(width_mult=vggish_width)
             self.scale_factor_module = nn.ModuleList(SqueezeExcite(d) for d in pre_sam_dim)
             self.sem_seg_head = MaskFormerHead(
@@ -116,8 +121,9 @@ class MaskFormer(nn.Module):
             audio_feature = audio_feature * vid_temporal_mask.reshape(B * T, 1, 1).to(
                 audio_feature.dtype)
 
-        features = self.backbone(frames)
-        pre_feats = self.pre_sam_backbone(self._normalize(pre_masks.reshape(B * T, H, W, 3)))
+        features = self.backbone(frames, dropout_generator)
+        pre_feats = self.pre_sam_backbone(self._normalize(pre_masks.reshape(B * T, H, W, 3)),
+                                          dropout_generator)
         for i, key in enumerate(sorted(features)):
             gate = self.scale_factor_module[i](pre_feats[key])
             features[key] = features[key] + gate * pre_feats[key]
@@ -148,7 +154,7 @@ def semantic_inference(
 # 213-250)
 _BUILDS = {
     "META_ARCHITECTURE": ("MaskFormer",),
-    "BACKBONE.NAME": ("build_resnet_backbone", "tiny_resnet"),
+    "BACKBONE.NAME": ("build_resnet_backbone", "build_pvtv2_b5_backbone", "tiny_resnet"),
     "AUDIO.FREEZE_AUDIO_EXTRACTOR": (True,),
     "PRE_SAM.USE_PRE_SAM": (True,),
     "FUSE_CONFIG.FUSION_STEP": ("late",),
@@ -174,14 +180,24 @@ def _cfg_get(node, dotted: str):
     return node
 
 
+# the PVT towers' depths that build_model gives (the JAX build_model always
+# builds B5's); the CPU tests cut them
+PVT_DEPTHS = B5_DEPTHS
+
+
 def build_model(cfg, device: Optional[torch.device | str] = None) -> MaskFormer:
     """The MaskFormer a config describes (the key surface of
     combo_avs_tpu/models/meta_arch.py::build_model, ref:
     maskformer_model.py:101-272 from_config), on `device`, else on
     MODEL.DEVICE ("cuda": the current CUDA device, raising without one).
     Raises NotImplementedError, naming the key and its value, for a setting
-    the port does not build yet (the PVT backbone, early fusion, fusion types
-    other than MHA-B, no pre-SAM tower, ...)."""
+    the port does not build yet (early fusion, fusion types other than
+    MHA-B, no pre-SAM tower, ...).
+
+    The PVT backbone is B5 (MODEL.PVT.NAME "b5", all four OUT_FEATURES) at
+    `PVT_DEPTHS`, with drop path 0.1: the JAX build_model passes no rate, so
+    its PVTv2 always takes its default 0.1, and MODEL.PVT.DROP_PATH_RATE must
+    say the same."""
     m = cfg.MODEL
     for key, allowed in _BUILDS.items():
         value = _cfg_get(m, key)
@@ -198,6 +214,11 @@ def build_model(cfg, device: Optional[torch.device | str] = None) -> MaskFormer:
         checks.update({f"RESNETS.{k}": (m.RESNETS[k], v) for k, v in (
             ("DEPTH", 50), ("STEM_OUT_CHANNELS", 64), ("RES2_OUT_CHANNELS", 256),
             ("STRIDE_IN_1X1", False), ("NORM", "FrozenBN"))})
+    if m.BACKBONE.NAME == "build_pvtv2_b5_backbone":
+        checks.update({"PVT.NAME": (m.PVT.NAME, "b5"),
+                       "PVT.OUT_FEATURES": (list(m.PVT.OUT_FEATURES),
+                                            ["res2", "res3", "res4", "res5"]),
+                       "PVT.DROP_PATH_RATE": (m.PVT.DROP_PATH_RATE, DROP_PATH_RATE)})
     for key, (value, want) in checks.items():
         if value != want:
             raise NotImplementedError(f"MODEL.{key} = {value!r} is not ported yet "
@@ -226,5 +247,6 @@ def build_model(cfg, device: Optional[torch.device | str] = None) -> MaskFormer:
         audio_out_dim=m.MASK_FORMER.HIDDEN_DIM,
         pre_sam_dim=tuple(m.PRE_SAM.PRE_SAM_DIM),
         vggish_width=m.AUDIO.get("WIDTH_MULT", 1.0),
+        pvt_depths=PVT_DEPTHS,
         device=default_device(device),
     )

@@ -10,7 +10,7 @@ Module names follow the reference checkpoints (`stem.conv1`, `res2.0.conv1`,
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -104,7 +104,9 @@ class ResNet(nn.Module):
             bottleneck *= 2
             out_ch *= 2
 
-    def forward(self, x) -> Dict[str, torch.Tensor]:
+    def forward(self, x, generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """`generator` is the towers' common signature (the PVT tower draws
+        its drop path from it); a FrozenBN ResNet draws nothing."""
         x = self.stem(x)
         outputs = {}
         for name in self.stage_names:

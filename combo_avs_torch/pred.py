@@ -1,5 +1,6 @@
-"""Evaluation command line for COMBO-R50 S4: a reference checkpoint over an
-AVSBench S4 split, printing the split's mIoU and F-score.
+"""Evaluation command line for COMBO-R50 and COMBO-PVTv2-B5: a reference
+checkpoint over an AVSBench S4 or MS3 split, printing the split's mIoU and
+F-score.
 
 The counterpart of the repository's `pred.py` (ref: pred.py:130-238) for
 the PyTorch port. With `--config-file` the model is the one the config
@@ -8,13 +9,13 @@ INPUT.SIZE_DIVISIBILITY; without one it is `MaskFormer()`'s defaults,
 COMBO-R50 S4, at 224.
 
     python -m combo_avs_torch.pred --datasets-root DIR --checkpoint model_best.pth \
-        [--config-file combo_avs_tpu/configs/avs_s4/COMBO_R50_bs8_90k.yaml] \
-        [--dataset avss4_sem_seg_test] [--max-videos N] [--batch-size 4] [--bf16] \
-        [--output-dir DIR] [--device cpu]
+        [--config-file combo_avs_tpu/configs/avs_ms3/COMBO_PVTV2B5_bs8_20k.yaml] \
+        [--dataset avss4_sem_seg_test | avsms3_sem_seg_test | ...] [--max-videos N] \
+        [--batch-size 4] [--bf16] [--output-dir DIR] [--device cpu]
 
-It runs on the current CUDA device unless `--device` names another. A tree
-to try it on: `python -m combo_avs_torch.data.synth --root DIR` (its split
-is `avss4_sem_seg_val`).
+It runs on the current CUDA device unless `--device` names another. Trees
+to try it on: `python -m combo_avs_torch.data.synth --root DIR [--ms3-val N]`
+(their splits are `avss4_sem_seg_val` and `avsms3_sem_seg_val`).
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ import sys
 
 
 def parse_args(argv=None) -> argparse.Namespace:
-    p = argparse.ArgumentParser(description="COMBO-AVS S4 evaluation (PyTorch port)")
+    p = argparse.ArgumentParser(description="COMBO-AVS S4 / MS3 evaluation (PyTorch port)")
     p.add_argument("--datasets-root", default=os.environ.get(
         "DETECTRON2_DATASETS", os.environ.get("AVS_DATASETS", "AVS_dataset")))
     p.add_argument("--checkpoint", required=True, help="reference model_best.pth or .pkl")

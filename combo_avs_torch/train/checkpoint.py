@@ -25,13 +25,19 @@ them (`combo_avs_tpu/train/checkpoint.py:390-420`); `BestCheckpointer`
 (:422-456) keeps the weights of the best evaluation as `model_best.pth` in
 the reference layout, which `load_reference_checkpoint` reads.
 
+`convert_pvt` reads a timm-named PVTv2 file (`d2_pvt_v2_b5.pkl`) into one
+PVT tower's keys, which are timm's; `load_pretrained` fills both towers of a
+PVT model from it.
+
 `state_dict_from_flax` is the inverse of
 `combo_avs_tpu/train/checkpoint.py::convert_combo_checkpoint` for the ResNet
-model: it takes the flax variable tree ({"params": ..., "frozen": ...}, numpy
-leaves) and returns the reference `.pth` key names the port's modules use.
-Layouts: conv HWIO -> OIHW, Dense [in, out] -> Linear [out, in], LayerNorm /
-GroupNorm `scale` -> `weight`, and the pixel decoder's scanned encoder
-parameters (stacked on a leading layer axis) unstacked into one key per layer.
+and the PVT model: it takes the flax variable tree ({"params": ...}, and
+"frozen" for the ResNet's FrozenBN statistics; numpy leaves) and returns the
+reference `.pth` key names the port's modules use. Layouts: conv HWIO ->
+OIHW, Dense [in, out] -> Linear [out, in], LayerNorm / GroupNorm `scale` ->
+`weight`, and scanned parameters (the pixel decoder's encoder layers, each
+PVT stage's blocks, stacked on a leading axis) unstacked into one key per
+layer or block.
 """
 
 from __future__ import annotations
@@ -45,6 +51,8 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+
+from combo_avs_torch.models.pvtv2 import PVTv2
 
 logger = logging.getLogger("COMBO")
 
@@ -79,6 +87,42 @@ def _resnet(sd: dict, prefix: str, params: dict, frozen: dict) -> None:
             conv = "shortcut" if norm == "shortcut_norm" else f"conv{norm[-1]}"
             for leaf, v in leaves.items():
                 sd[f"{prefix}{stage}.{b}.{conv}.norm.{_NORM_LEAF[leaf]}"] = np.asarray(v)
+
+
+def _pvt(sd: dict, prefix: str, params: dict) -> None:
+    """A JAX PVTv2 tower (each stage's blocks stacked on a leading depth
+    axis, `combo_avs_tpu/train/checkpoint.py::convert_pvt`) -> timm keys."""
+    i = 1
+    while f"patch_embed{i}" in params:
+        sd[f"{prefix}patch_embed{i}.proj.weight"] = _conv(params[f"patch_embed{i}"]["kernel"])
+        sd[f"{prefix}patch_embed{i}.proj.bias"] = np.asarray(params[f"patch_embed{i}"]["bias"])
+        _norm(sd, f"{prefix}patch_embed{i}.norm", params[f"patch_norm{i}"])
+        _norm(sd, f"{prefix}norm{i}", params[f"norm{i}"])
+        stage = params[f"block{i}"]
+        for j in range(len(stage["norm1"]["scale"])):
+            one = _index(stage, j)
+            key = f"{prefix}block{i}.{j}."
+            for ln in ("norm1", "norm2"):
+                _norm(sd, f"{key}{ln}", one[ln])
+            for lin in ("q", "kv", "proj"):
+                _dense(sd, f"{key}attn.{lin}", one["attn"][lin])
+            if "sr" in one["attn"]:
+                sd[f"{key}attn.sr.weight"] = _conv(one["attn"]["sr"]["kernel"])
+                sd[f"{key}attn.sr.bias"] = np.asarray(one["attn"]["sr"]["bias"])
+                _norm(sd, f"{key}attn.norm", one["attn"]["sr_norm"])
+            for lin in ("fc1", "fc2"):
+                _dense(sd, f"{key}mlp.{lin}", one["mlp"][lin])
+            # depthwise HWIO (3, 3, 1, C) -> OIHW (C, 1, 3, 3)
+            sd[f"{key}mlp.dwconv.dwconv.weight"] = _conv(one["mlp"]["dwconv"]["kernel"])
+            sd[f"{key}mlp.dwconv.dwconv.bias"] = np.asarray(one["mlp"]["dwconv"]["bias"])
+        i += 1
+
+
+def _index(tree, j: int):
+    """Entry j of every leaf's leading axis."""
+    if isinstance(tree, dict):
+        return {k: _index(v, j) for k, v in tree.items()}
+    return np.asarray(tree)[j]
 
 
 def _dense(sd, key, p):
@@ -164,13 +208,17 @@ def _predictor(sd, prefix, p, dec_layers):
 
 
 def state_dict_from_flax(variables: Dict, dec_layers: int = 9, enc_layers: int = 6) -> Dict[str, np.ndarray]:
-    """{"params", "frozen"} of the JAX ResNet MaskFormer -> {key: numpy array}
-    for `combo_avs_torch.models.meta_arch.MaskFormer.load_state_dict`
-    (after `torch.from_numpy`)."""
-    params, frozen = variables["params"], variables["frozen"]
+    """The variables of the JAX MaskFormer -> {key: numpy array} for
+    `combo_avs_torch.models.meta_arch.MaskFormer.load_state_dict` (after
+    `torch.from_numpy`): {"params", "frozen"} of the ResNet model, or
+    {"params"} of the PVT model, which has no frozen collection."""
+    params = variables["params"]
     sd: Dict[str, np.ndarray] = {}
     for tower in ("backbone", "pre_sam_backbone"):
-        _resnet(sd, f"{tower}.", params[tower], frozen[tower])
+        if "patch_embed1" in params[tower]:
+            _pvt(sd, f"{tower}.", params[tower])
+        else:
+            _resnet(sd, f"{tower}.", params[tower], variables["frozen"][tower])
     _vggish(sd, "audio_backbone.", params["audio_backbone"])
     i = 0
     while f"scale_factor{i}" in params:
@@ -306,6 +354,20 @@ def convert_vggish(sd: Dict[str, np.ndarray], prefix: str = "") -> Dict[str, np.
     return out
 
 
+# the keys of one PVTv2 tower (timm's names)
+_PVT_KEY = re.compile(r"(patch_embed\d\.(proj|norm)|norm\d|block\d\.\d+\.(norm1|norm2"
+                      r"|attn\.(q|kv|proj|sr|norm)|mlp\.(fc1|fc2|dwconv\.dwconv)))\.(weight|bias)$")
+
+
+def convert_pvt(sd: Dict[str, np.ndarray], prefix: str = "") -> Dict[str, np.ndarray]:
+    """A timm-named PVTv2 file (`d2_pvt_v2_b5.pkl`, or a trained model's
+    towers under `prefix`) -> one tower's keys, which are timm's. Keys a
+    tower does not have (the classifier `head.*`, ...) are not read, as
+    `combo_avs_tpu/train/checkpoint.py::convert_pvt` reads tower keys only."""
+    return {k[len(prefix):]: v for k, v in sd.items()
+            if k.startswith(prefix) and _PVT_KEY.match(k[len(prefix):])}
+
+
 def _load_part(model: torch.nn.Module, part: Dict[str, np.ndarray], what: str) -> None:
     """Copy `part` (full key names) into `model`; it must cover the submodules
     it names exactly, in their shapes."""
@@ -325,13 +387,15 @@ def _load_part(model: torch.nn.Module, part: Dict[str, np.ndarray], what: str) -
 
 
 def load_pretrained(model: torch.nn.Module, weights: str = "", vggish: str = "") -> None:
-    """MODEL.WEIGHTS (an R-50 `.pkl` or d2 file) into both ResNet towers and
+    """MODEL.WEIGHTS (an R-50 `.pkl` or d2 file for ResNet towers, a timm
+    PVTv2 file for PVT ones, by the model's backbone) into both towers and
     the VGGish `.pth` into the (frozen) audio tower, each when its file
     exists; a file that is named but missing is logged and skipped, and that
     tower keeps its initialization, as the JAX package's
     `train_net.py::load_pretrained` does."""
     if weights and os.path.exists(weights):
-        tower = convert_resnet(load_reference_file(weights))
+        sd = load_reference_file(weights)
+        tower = convert_pvt(sd) if isinstance(model.backbone, PVTv2) else convert_resnet(sd)
         _load_part(model, fan_out_siamese({f"backbone.{k}": v for k, v in tower.items()}),
                    weights)
         logger.info("Loaded backbone weights from %s", weights)

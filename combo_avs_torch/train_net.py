@@ -6,15 +6,16 @@
         [--eval-only] [--resume] [--datasets-root DIR] [--max-iter N] [--log-every N] \
         [KEY VALUE ...]
 
-It reads a shipped config file in place (`config.py`, no yaml), registers
-the S4 splits under the datasets root, builds the model on MODEL.DEVICE (the
+It takes the shipped S4 and MS3 COMBO configs (R50 and PVTv2-B5). It reads
+the config file in place (`config.py`, no yaml), registers the S4 and MS3
+splits under the datasets root, builds the model on MODEL.DEVICE (the
 current CUDA device unless the config says "cpu"; without a CUDA device it
-raises), loads MODEL.WEIGHTS and the VGGish file when they exist (a named
-file that is missing is logged and skipped), and trains with periodic
-evaluation, `model_best.pth` and step checkpoints under OUTPUT_DIR;
-`--resume` continues from the newest one. `--eval-only` evaluates the newest
-checkpoint (or the initialization) on DATASETS.TEST and checks
-TEST.EXPECTED_RESULTS. One process on one card: the JAX package's
+raises), loads MODEL.WEIGHTS (R-50 or PVTv2) and the VGGish file when they
+exist (a named file that is missing is logged and skipped), and trains
+with periodic evaluation, `model_best.pth` and step checkpoints under
+OUTPUT_DIR; `--resume` continues from the newest one. `--eval-only`
+evaluates the newest checkpoint (or the initialization) on DATASETS.TEST
+and checks TEST.EXPECTED_RESULTS. One process on one card: the JAX package's
 `--coordinator` multi-process launch is not ported yet.
 """
 
