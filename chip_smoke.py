@@ -1,7 +1,9 @@
 """Drive the PyTorch port's paths on one NVIDIA GPU and check them: COMBO-R50
 S4 inference, S4 training, and the S4 evaluation and training entry points;
-then COMBO-PVTv2-B5 at full depth and width through the same steps, its
-training entry point, and the MS3 evaluation entry point.
+COMBO-R50 on AVSS (71 classes): the bf16 AMP training step and the AVSS
+training and evaluation entry points; then COMBO-PVTv2-B5 at full depth and
+width through the S4 steps, its training entry point, and the MS3
+evaluation entry point.
 
     python3 chip_smoke.py [--kernels-only]
 
@@ -21,7 +23,10 @@ non-zero and never prints its last line:
        K1 deformable-attention forward under both launch plans (staged, the
        plan's choice, and global; fp32 and bf16 value; eval and training shapes),
        K2 its backward under both launch plans (level_slice, the plan's
-       choice, and global; also a level one row over the opt-in limit),
+       choice, and global; also a level one row over the opt-in limit), and
+       in bf16 (the AMP step's types) at the AVSS training shape and a
+       ragged one, against the plain version's fp32 autograd on the same
+       bf16-rounded inputs,
        K3/K5 the point-sample forward, K4 its backward (the image gradient
        under both launch plans, staged, the plan's choice, and global, at
        the plan's edges),
@@ -65,19 +70,33 @@ non-zero and never prints its last line:
   9. one training step at 12500 points, whose 37500 candidates the
      stratified selection does not divide, so that K6 runs once per decoder
      output;
-  10. COMBO-PVTv2-B5: `build_model` of the shipped
+  10. COMBO-R50 AVSS: `build_model` of the shipped avs_ss/COMBO_R50_bs8_90k.yaml
+     (71 classes, SOLVER.AMP.ENABLED) with seeded weights: 4 bf16 AMP steps,
+     the first a warm-up, of 8 videos x 10 frames x 224^2, K = 12 slots, v2
+     flags (avss-train: s/step, peak memory, and one more step with the
+     matcher's wall and its solve's; each kernel's
+     launches per step by plan, K2 all bf16); the AMP forward's losses
+     against the fp32 one's on the same weights, batch, draws and matching
+     (avss-amp-vs-fp32); `train_net` on that config over a synthetic AVSS
+     tree (3 train, 3 val, 5 test videos; v1s, v1m, v2), 2 iterations with
+     an evaluation and a checkpoint (avss-entry); then `pred --config-file
+     avs_ss/Test_COMBO_R50_bs8_90k.yaml` with its model_best.pth and no
+     `--dataset` or `--bf16` over the 5 test videos, which must score
+     avss_sem_seg_test in bf16 (avss-pred: its four metrics and timers, K1
+     6 and K7 0 a batch);
+  11. COMBO-PVTv2-B5: `build_model` of the shipped
      `avs_s4/COMBO_PVTV2B5_bs8_90k.yaml` on the card (B5 towers at depths 3,
      6, 40, 3), seeded weights; phases 4, 6 and 8 on it (pvt-slice and
      pvt-train, each with a profiler window: device kernel ms a step and
      its share of the step's wall; pvt-train's peak memory;
      pvt-card-vs-cpu with the eval forward on 1 video x 5 frames x 224^2),
      the same launch checks; phase 7 on that config (pvt-entry); then `python -m combo_avs_torch.pred --config-file
-     avs_ms3/COMBO_PVTV2B5_bs8_20k.yaml` with the model_best.pth it wrote
-     over a synthetic MS3 val tree of 16 videos (pred-ms3: mIoU, F-score,
-     videos/s, its timers, K1 six and K7 one launch per batch); neither
-     entry point may import jax, flax, yaml, cv2, tensorflow or the JAX
-     package;
-  11. the wall of each phase and the total, a JSON line of per-kernel
+     avs_ms3/Test_COMBO_PVTV2B5_bs8_20k.yaml` with the model_best.pth it wrote
+     and no `--dataset`, over a synthetic MS3 test tree of 16 videos
+     (pred-ms3: the config's avsms3_sem_seg_test in bf16, mIoU, F-score,
+     videos/s, its timers, K1 six and K7 one launch per batch); no entry
+     point may import jax, flax, yaml, cv2, tensorflow or the JAX package;
+  12. the wall of each phase and the total, a JSON line of per-kernel
      results (`ms` device ms, `call_ms` call ms; launches by path), then the
      final JSON status line.
 Without a CUDA device it exits non-zero at once.
@@ -132,6 +151,31 @@ FALLBACK_POINTS = 12500
 # K2, K4: fp32 atomics add in a run-dependent order, K3/K5 sum four products
 # in another order than the plain version: 1e-5 of max |plain|
 TOL_FP32 = 1e-5
+# K2 in bf16: both sides read the same bf16 value, grad, locations and
+# weights and sum in fp32 (in another order), and each gradient is rounded
+# to bf16 once, so an element can differ by one bf16 ulp (2^-8 relative)
+K2_TOL_BF16 = 8e-3  # max |kernel - plain| / max |plain|, K1's bf16 bound
+# AVSS training: the recipe's 8 videos of the 10-frame bucket (v2), K = 12
+# target slots, 71 classes, bf16 AMP (combo_avs_tpu/configs/avs_ss/
+# R50-AVSS-SemanticSegmentation.yaml: IMS_PER_BATCH 8, SOLVER.AMP.ENABLED)
+AVSS_B, AVSS_T, AVSS_K, AVSS_CLASSES = 8, 10, 12, 71
+AVSS_N = AVSS_B * AVSS_T  # frames
+AVSS_STEPS = 4  # AMP steps, the first a warm-up; then one more with the matcher timed
+# the AMP forward's losses against the fp32 forward's on the same weights,
+# batch and draws, the fp32 pass's matching, attention masks and uncertain
+# points shared: the forward rounds every activation to bf16 (2^-9
+# relative) through two R50 towers, 6 encoder and 9 decoder layers, and the
+# losses are taken in fp32 on those outputs; the CPU test of the tiny model
+# measured 3.3e-3 (tests/test_torch_avss_train.py)
+AVSS_AMP_LOSS_RTOL = 5e-2  # |bf16 - fp32| / max(1, |fp32|), each loss
+# the AVSS entry points: a synthetic tree of 3 train videos (a v1s, a v1m
+# and a v2: batches of 8 from either frame bucket, videos repeated), 3 val
+# videos (one a batch, as the trainer evaluates), 5 test videos (4 of 5
+# frames and 1 of 10: a batch of each bucket at batch 4); 2 iterations with
+# an evaluation and a checkpoint at 2. AVSBench-semantic's splits are far
+# larger; these are cut for the call's time (the AVSS metrics take the host
+# about 0.6 s a video)
+AVSS_TRAIN_VIDEOS, AVSS_VAL_VIDEOS, AVSS_TEST_VIDEOS, AVSS_ENTRY_ITERS = 3, 3, 5, 2
 # training, card vs CPU (1 video x 5 frames x 128^2, TF32 off, the same
 # weights and draws, exact top-k on both): each loss within 1e-3 relative;
 # gradients by the calibrated bounds of tests/test_grad_oracle.py for two
@@ -199,6 +243,9 @@ CONFIG_DIR = os.path.join(REPO, "combo_avs_tpu", "configs")
 R50_CONFIG = os.path.join(CONFIG_DIR, "avs_s4", "COMBO_R50_bs8_90k.yaml")
 PVT_CONFIGS = {"s4": os.path.join(CONFIG_DIR, "avs_s4", "COMBO_PVTV2B5_bs8_90k.yaml"),
                "ms3": os.path.join(CONFIG_DIR, "avs_ms3", "COMBO_PVTV2B5_bs8_20k.yaml")}
+MS3_TEST_CONFIG = os.path.join(CONFIG_DIR, "avs_ms3", "Test_COMBO_PVTV2B5_bs8_20k.yaml")
+AVSS_CONFIG = os.path.join(CONFIG_DIR, "avs_ss", "COMBO_R50_bs8_90k.yaml")
+AVSS_TEST_CONFIG = os.path.join(CONFIG_DIR, "avs_ss", "Test_COMBO_R50_bs8_90k.yaml")
 # K7 against the plain tail on the same forward (fp32): the maps differ by
 # fp32 rounding (1e-5 of max |plain|), which can flip a pixel lying within
 # that of the 0.5 threshold; the metrics, rounded to 4 decimals, may move by
@@ -515,8 +562,12 @@ def phase_k2(dev: torch.device) -> dict:
     forced through the global kernel (the plan at an opt-in limit of 0), a
     ragged shape, and a largest level one row more than the level-slice
     kernel's shared memory takes at the card's opt-in limit, through the
-    plan's own choice (global).
-    Both plans are timed at the training shape."""
+    plan's own choice (global). In bf16 (the AMP step's value, grad,
+    locations and weights): the AVSS training shape (80 frames, level_slice)
+    and the ragged shape under both plans, against the plain version's fp32
+    autograd on the same bf16-rounded inputs, each gradient rounded to the
+    kernel's output type. Both plans are timed at the fp32 training shape,
+    the level-slice plan at the bf16 one."""
     from combo_avs_torch.ops import deform_attn_cuda as k
     from combo_avs_torch.ops.deform_attn import ms_deform_attn_plain
 
@@ -527,27 +578,38 @@ def phase_k2(dev: torch.device) -> dict:
     over = _one_level(fits + 1)
     Lq = sum(h * w for h, w in K1_LEVELS)
     train = dict(K1_SHAPE, B=TRAIN_N)
+    avss = dict(K1_SHAPE, B=AVSS_N)
+    ragged_levels, ragged = ((3, 5), (6, 10)), dict(B=3, M=3, D=16, P=4)
+    f32, bf16 = torch.float32, torch.bfloat16
     result = {"smem_optin": optin}
-    cases = [  # name, levels, shape, queries, the opt-in limit the plan is made for, its kernel
-        ("train", K1_LEVELS, train, Lq, optin, "level_slice"),
-        ("train_global", K1_LEVELS, train, Lq, 0, "global"),
-        ("ragged", ((3, 5), (6, 10)), dict(B=3, M=3, D=16, P=4), 37, optin, "level_slice"),
-        ("over_optin", ((7, 7), over), dict(B=2, M=2, D=D, P=P), 100, optin, "global"),
+    cases = [  # name, levels, shape, queries, the opt-in limit the plan is made for, its
+        # kernel, the value type
+        ("train", K1_LEVELS, train, Lq, optin, "level_slice", f32),
+        ("train_global", K1_LEVELS, train, Lq, 0, "global", f32),
+        ("ragged", ragged_levels, ragged, 37, optin, "level_slice", f32),
+        ("over_optin", ((7, 7), over), dict(B=2, M=2, D=D, P=P), 100, optin, "global", f32),
+        ("avss_bf16", K1_LEVELS, avss, Lq, optin, "level_slice", bf16),
+        ("ragged_bf16", ragged_levels, ragged, 37, optin, "level_slice", bf16),
+        ("ragged_bf16_global", ragged_levels, ragged, 37, 0, "global", bf16),
     ]
     inputs = {}
-    for name, levels, shp, lq, plan_optin, kernel in cases:
-        plan = k.bwd_launch_plan(levels, lq, shp["M"], shp["D"], shp["P"], plan_optin)
+    for name, levels, shp, lq, plan_optin, kernel, dtype in cases:
+        esize = torch.tensor([], dtype=dtype).element_size()
+        plan = k.bwd_launch_plan(levels, lq, shp["M"], shp["D"], shp["P"], plan_optin, esize)
         if plan.kernel != kernel:
             raise AssertionError(f"[k2] {name}: the launch plan chose {plan}, expected {kernel}")
-        key = (levels, tuple(sorted(shp.items())), lq)
-        if key not in inputs:  # train and train_global share their inputs
+        key = (levels, tuple(sorted(shp.items())), lq, dtype)
+        if key not in inputs:  # the cases of one shape and type share their inputs
             value, loc, w = k1_inputs(shp["B"], shp["M"], shp["D"], shp["P"], levels, lq,
                                       torch.float32, dev, seed=10 + len(name))
             g = torch.randn((shp["B"], lq, shp["M"] * shp["D"]), device=dev,
                             generator=torch.Generator(device=dev).manual_seed(len(name)))
-            leaves = [t.clone().requires_grad_() for t in (value, loc, w)]
+            value, loc, w, g = (t.to(dtype) for t in (value, loc, w, g))
+            # the plain version in fp32 on the kernel's own (rounded) inputs
+            leaves = [t.float().requires_grad_() for t in (value, loc, w)]
             out = ms_deform_attn_plain(leaves[0], levels, leaves[1], leaves[2])
-            want = torch.autograd.grad(out, leaves, g, retain_graph=True)
+            want = [t.to(dtype) for t in torch.autograd.grad(out, leaves, g.float(),
+                                                            retain_graph=True)]
             inputs[key] = (value, loc, w, g, leaves, out, want)
         value, loc, w, g, leaves, out, want = inputs[key]
         # the chosen plan is passed only where it is forced, so that the
@@ -555,24 +617,28 @@ def phase_k2(dev: torch.device) -> dict:
         forced = plan if plan_optin != optin else None
         fn = lambda: k.ms_deform_attn_bwd_cuda(value, levels, loc, w, g, plan=forced)  # noqa: E731
         got = fn()
-        errs = [compare(f"[k2] {name} ({plan.kernel}, levels {levels}) d{n}", a, b, TOL_FP32)
+        tol = TOL_FP32 if dtype == f32 else K2_TOL_BF16
+        errs = [compare(f"[k2] {name} ({plan.kernel}, levels {levels}) d{n}", a, b, tol)
                 for n, a, b in zip(("value", "loc", "weights"), got, want)]
-        if not name.startswith("train"):
+        if name not in ("train", "train_global", "avss_bf16"):
             continue
-        plain = lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)  # noqa: E731
-        t = timings(fn, plain=plain if name == "train" else None)
+        plain = lambda: torch.autograd.grad(out, leaves, g.float(), retain_graph=True)  # noqa: E731
+        t = timings(fn, plain=plain if name != "train_global" else None)
         # per in-level corner and channel: <g, v>, three FMAs into the
         # weight and the two coordinate sums, the dvalue term a*w*g and its add
         bd = bound(nbytes(value, loc, w, g, *got), 10 * shp["D"] * deform_corners(levels, loc))
-        log(f"[k2] {name}: {plan.kernel} plan {plan}: {describe(t)} (autograd backward); "
+        log(f"[k2] {name} [{shp['B']},{lq},{shp['M']},{shp['D']}] {str(dtype)[6:]}: "
+            f"{plan.kernel} plan {plan}: {describe(t)} (autograd backward); "
             f"bound {bd['bound_ms']:.4f} ms by {bd['bound_by']} "
             f"({bd['bound_ms'] / t['ms']:.0%} of it)")
-        result[plan.kernel] = dict(max_abs_err=max(e["max_abs_err"] for e in errs),
-                                   max_rel_err=max(e["max_rel_err"] for e in errs),
-                                   plan=plan._asdict(), **t, **bd)
+        row = "bf16" if dtype == bf16 else plan.kernel
+        result[row] = dict(max_abs_err=max(e["max_abs_err"] for e in errs),
+                           max_rel_err=max(e["max_rel_err"] for e in errs),
+                           plan=plan._asdict(), **t, **bd)
     ls, gl = result["level_slice"], result["global"]
     log(f"[k2] train, device ms: level_slice {ls['ms']:.4f} against global {gl['ms']:.4f} "
-        f"({ls['ms'] / gl['ms']:.2f}x); the card's opt-in limit {optin} bytes per block")
+        f"({ls['ms'] / gl['ms']:.2f}x); bf16 at [{AVSS_N},{Lq},8,32] level_slice "
+        f"{result['bf16']['ms']:.4f}; the card's opt-in limit {optin} bytes per block")
     return result
 
 
@@ -894,6 +960,8 @@ def reset_counts():
     deform_attn_cuda.launches = deform_attn_cuda.bwd_launches = 0
     deform_attn_cuda.fwd_plan_launches.update(dict.fromkeys(deform_attn_cuda.fwd_plan_launches, 0))
     deform_attn_cuda.bwd_plan_launches.update(dict.fromkeys(deform_attn_cuda.bwd_plan_launches, 0))
+    deform_attn_cuda.bwd_dtype_launches.update(
+        dict.fromkeys(deform_attn_cuda.bwd_dtype_launches, 0))
     point_sample_cuda.fwd_launches = point_sample_cuda.dimg_launches = 0
     point_sample_cuda.dxy_launches = 0
     point_sample_cuda.dimg_plan_launches.update(dict.fromkeys(point_sample_cuda.dimg_plan_launches,
@@ -1291,13 +1359,33 @@ def check_imports(what: str) -> None:
         raise AssertionError(f"{what} imported {loaded}")
 
 
+def timed_evaluate(timings: list):
+    """A stand-in for `train/evaluate.py::evaluate` that runs it and keeps
+    each call's split, precision, evaluator and timing in `timings`."""
+    from combo_avs_torch.train import evaluate as evaluate_mod
+
+    real = evaluate_mod.evaluate
+
+    def timed(model, dataset_name, **kw):
+        res, tm = real(model, dataset_name, **kw)
+        timings.append(dict(tm, dataset=dataset_name, bf16=kw.get("bf16"),
+                            evaluator=type(kw.get("evaluator")).__name__))
+        return res, tm
+
+    return timed
+
+
 def phase_pred_ms3(smi: str, checkpoint: str) -> dict:
-    """The MS3 evaluation entry point at full width: `pred --config-file
-    avs_ms3/COMBO_PVTV2B5_bs8_20k.yaml` with `checkpoint` over a synthetic
-    MS3 val tree of PRED_VIDEOS videos at batch EVAL_BATCH (fp32): metrics in
-    [0, 1], K1 six times and K7 once per batch (patch), its timers, and no
-    import of jax, flax, yaml, cv2, tensorflow or the JAX package."""
+    """The MS3 evaluation entry point at full width, as a user runs it: `pred
+    --config-file avs_ms3/Test_COMBO_PVTV2B5_bs8_20k.yaml` with `checkpoint`
+    and no `--dataset` or `--bf16`, over a synthetic MS3 test tree of
+    PRED_VIDEOS videos at batch EVAL_BATCH: it must score the config's
+    avsms3_sem_seg_test in bf16 (TEST.BF16 "auto" on the card) with the
+    MS3 evaluator; metrics in [0, 1], K1 six times and K7 once per batch
+    (patch), its timers, and no import of jax, flax, yaml, cv2, tensorflow
+    or the JAX package."""
     import tempfile
+    from unittest import mock
 
     from combo_avs_torch import pred
     from combo_avs_torch.data.synth import make_ms3
@@ -1305,43 +1393,38 @@ def phase_pred_ms3(smi: str, checkpoint: str) -> dict:
 
     batches = -(-PRED_VIDEOS // EVAL_BATCH)
     timings = []
-    real = evaluate_mod.evaluate
-
-    def timed(*args, **kw):
-        res, tm = real(*args, **kw)
-        timings.append(tm)
-        return res, tm
-
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        make_ms3(tmp, 0, PRED_VIDEOS, size=SIZE)
-        log(f"[pred-ms3] synthetic MS3 val tree: {PRED_VIDEOS} videos x {T} frames x {SIZE}^2 in "
-            f"{time.perf_counter() - t0:.1f} s")
-        evaluate_mod.evaluate = timed
-        try:
+        make_ms3(tmp, 0, 0, size=SIZE, n_test=PRED_VIDEOS)
+        log(f"[pred-ms3] synthetic MS3 test tree: {PRED_VIDEOS} videos x {T} frames x {SIZE}^2 "
+            f"in {time.perf_counter() - t0:.1f} s")
+        with mock.patch.object(evaluate_mod, "evaluate", timed_evaluate(timings)):
             torch.cuda.synchronize()
             reset_counts()
             t0 = time.perf_counter()
             res = pred.main(["--datasets-root", tmp, "--checkpoint", checkpoint, "--config-file",
-                             PVT_CONFIGS["ms3"], "--dataset", "avsms3_sem_seg_val",
-                             "--batch-size", str(EVAL_BATCH)])
+                             MS3_TEST_CONFIG, "--batch-size", str(EVAL_BATCH)])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        finally:
-            evaluate_mod.evaluate = real
     check_imports("[pred-ms3] pred.main")
     counts, plans = read_counts(), _plans()
     want = {k: {"k1": 6 * batches, "k7": batches}.get(k, 0) for k in counts}
     if counts != want or plans["k7"] != {"patch": batches, "pixel": 0}:
         raise AssertionError(f"[pred-ms3] launches {counts} by plan {plans}, expected {want}")
     m, (tm,) = res["sem_seg"], timings
+    scored = (tm["dataset"], tm["bf16"], tm["evaluator"])
+    if scored != ("avsms3_sem_seg_test", True, "SemSegEvaluator"):
+        raise AssertionError(f"[pred-ms3] pred scored {scored}, expected the config's "
+                             "avsms3_sem_seg_test in bf16 with the MS3 evaluator")
     if not all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in m.values()) or tm["videos"] != \
             PRED_VIDEOS:
         raise AssertionError(f"[pred-ms3] metrics {m} over {tm['videos']} videos")
-    log(f"[pred-ms3] mIoU {m['mIoU']:.4f}, f_score {m['f_score']:.4f}; {tm['videos']} videos, "
-        f"{tm['frames']} frames in {tm['total_s']:.3f} s (data {tm['data_s']:.3f}, compute "
-        f"{tm['compute_s']:.3f}, eval {tm['eval_s']:.3f}): {tm['videos'] / tm['total_s']:.2f} "
-        f"videos/s; pred.main {wall:.1f} s wall; launches {counts} on {smi}")
+    log(f"[pred-ms3] {tm['dataset']} (the config's DATASETS.TEST, no --dataset), bf16 "
+        f"(TEST.BF16 auto): mIoU {m['mIoU']:.4f}, f_score {m['f_score']:.4f}; {tm['videos']} "
+        f"videos, {tm['frames']} frames in {tm['total_s']:.3f} s (data {tm['data_s']:.3f}, "
+        f"compute {tm['compute_s']:.3f}, eval {tm['eval_s']:.3f}): "
+        f"{tm['videos'] / tm['total_s']:.2f} videos/s; pred.main {wall:.1f} s wall; launches "
+        f"{counts} on {smi}")
     return {"metrics": m, "timing": tm, "launches": counts, "wall_s": wall}
 
 
@@ -1482,6 +1565,10 @@ class SharedMatching:
     def __getattr__(self, name):  # num_points, for the draws
         return getattr(self.matcher, name)
 
+    def match_layers(self, layers):
+        """The criterion's call: each decoder output through `__call__`."""
+        return [self(*args) for args in layers]
+
     def __call__(self, *args):
         from combo_avs_torch.losses.matcher import BIG_COST
 
@@ -1493,7 +1580,7 @@ class SharedMatching:
             self.recorded.append((cost, assign))
             return assign
         cost_cpu, want = self.replay.pop(0)
-        self.check(cost_cpu, want, cost, assign.cpu(), args[5].cpu())
+        self.check(cost_cpu, want.cpu(), cost, assign.cpu(), args[5].cpu())
         want = want.to(assign.device)
         self.slots += want.numel()
         self.differ += int((want != assign).sum())
@@ -1733,6 +1820,391 @@ def phase_pvt(smi: str, dev: torch.device, walls: dict) -> dict:
     return out
 
 
+def avss_batch(b: int, size: int, dev, seed: int) -> dict:
+    """A loader-format AVSS training batch of the 10-frame bucket made on
+    `dev`: uint8 frames and Maskiges, fp32 log-mel, K = 12 slots of class
+    indices (1 to 4 valid a frame, distinct classes of the 71) and bool
+    masks, every frame annotated, weighted and heard (v2's flags)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n_valid = torch.randint(1, 5, (b, AVSS_T, 1), generator=g, device=dev)
+    valid = torch.arange(AVSS_K, device=dev) < n_valid
+    labels = torch.argsort(torch.rand((b, AVSS_T, AVSS_CLASSES), generator=g, device=dev),
+                           dim=-1)[..., :AVSS_K]
+    masks = torch.rand((b, AVSS_T, AVSS_K, size, size), generator=g, device=dev) > 0.7
+    return {
+        "images": torch.randint(0, 256, (b, AVSS_T, size, size, 3), generator=g, device=dev,
+                                dtype=torch.uint8),
+        "audio_log_mel": torch.randn((b, AVSS_T, 96, 64), generator=g, device=dev),
+        "pre_masks": torch.randint(0, 256, (b, AVSS_T, size, size, 3), generator=g, device=dev,
+                                   dtype=torch.uint8),
+        "labels": labels, "masks": masks & valid[..., None, None], "valid": valid,
+        "gt_temporal_mask": torch.ones((b, AVSS_T), device=dev),
+        "vid_temporal_mask": torch.ones((b, AVSS_T), device=dev),
+    }
+
+
+class MatcherClock:
+    """Wraps a criterion's matcher and, while `on`, times each of its calls
+    (one a step: every decoder output's matching) between two
+    synchronizations, and within it the assignment solve
+    (`ops/lsap.py::solve_lsap_batch` as the matcher calls it): `walls` and
+    `solve_walls`, seconds."""
+
+    def __init__(self, matcher):
+        self.matcher, self.on, self.walls, self.solve_walls = matcher, False, [], []
+
+    def __getattr__(self, name):  # num_points, cost_matrix
+        return getattr(self.matcher, name)
+
+    def match_layers(self, layers):
+        if not self.on:
+            return self.matcher.match_layers(layers)
+        from unittest import mock
+
+        from combo_avs_torch.losses import matcher as matcher_mod
+
+        solve = matcher_mod.solve_lsap_batch
+
+        def timed_solve(cost):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = solve(cost)
+            torch.cuda.synchronize()
+            self.solve_walls.append(time.perf_counter() - t0)
+            return out
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with mock.patch.object(matcher_mod, "solve_lsap_batch", timed_solve):
+            out = self.matcher.match_layers(layers)
+        torch.cuda.synchronize()
+        self.walls.append(time.perf_counter() - t0)
+        return out
+
+
+def phase_avss_train(smi: str, model, cfg) -> dict:
+    """The AVSS AMP step at full width: `make_train_step(amp=True)` on
+    AVSS_B videos x AVSS_T frames x 224^2 (K = 12, 71 classes, v2 flags),
+    1 warm-up and AVSS_STEPS - 1 timed steps, then one more with the matcher
+    timed (synchronized around it): s/step, peak memory, the matcher's wall,
+    finite losses, the weights still float32, and the launches per step by
+    plan and value type (K1 6, K2 6 bf16 level_slice, K3+K5 50, K4 dimg 10
+    staged, K4 dxy 0, K6 0, K7 0)."""
+    from combo_avs_torch.losses.criterion import build_criterion, build_weight_dict
+    from combo_avs_torch.ops import deform_attn_cuda
+    from combo_avs_torch.train.optim import build_optimizer
+    from combo_avs_torch.train.train_step import make_train_step
+
+    dev = next(model.parameters()).device
+    crit, wd = build_criterion(cfg), build_weight_dict(cfg)
+    clock = crit.matcher = MatcherClock(crit.matcher)
+    step = make_train_step(model, crit, wd, build_optimizer(cfg, model),
+                           torch.Generator(device=dev).manual_seed(SEED),
+                           amp=cfg.SOLVER.AMP.ENABLED)
+    batch = avss_batch(AVSS_B, SIZE, dev, seed=SEED + 5)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    times, metrics = [], []
+    for i in range(AVSS_STEPS + 1):
+        clock.on = i == AVSS_STEPS
+        t0 = time.perf_counter()
+        m = step(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        metrics.append({k: float(v) for k, v in m.items()})
+        log(f"[avss-train] step {i}{' (warm-up)' if i == 0 else ''}"
+            f"{' (matcher timed)' if clock.on else ''}: {times[-1]:.4f} s, total_loss "
+            f"{metrics[-1]['total_loss']:.6f}, loss_ce {metrics[-1]['loss_ce']:.6f}, "
+            f"loss_mask {metrics[-1]['loss_mask']:.6f}, loss_dice {metrics[-1]['loss_dice']:.6f}")
+    steps = AVSS_STEPS + 1
+    counts, plans = read_counts(), _plans()
+    dtypes = dict(deform_attn_cuda.bwd_dtype_launches)
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: v * steps for k, v in TRAIN_LAUNCHES.items()}
+    want_plans = {"k1": {"staged": want["k1"], "global": 0},
+                  "k2": {"level_slice": want["k2"], "global": 0},
+                  "k4_dimg": {"staged": want["k4_dimg"], "global": 0},
+                  "k7": {"patch": 0, "pixel": 0}}
+    if counts != want or plans != want_plans or dtypes != {"float32": 0,
+                                                           "bfloat16": want["k2"]}:
+        raise AssertionError(f"[avss-train] launches {counts} by plan {plans}, K2 by type "
+                             f"{dtypes} in {steps} steps; expected {want} by plan {want_plans}, "
+                             "every K2 launch in bf16")
+    for m in metrics:
+        if set(m) != {"total_loss", *wd} or not all(np.isfinite(v) for v in m.values()):
+            raise AssertionError(f"[avss-train] losses not finite or misnamed: {m}")
+    if any(p.dtype != torch.float32 for p in model.parameters()):
+        raise AssertionError("[avss-train] the AMP step left a weight out of float32")
+    med = float(np.median(times[1:AVSS_STEPS]))
+    matcher_ms, solve_ms = clock.walls[0] * 1e3, clock.solve_walls[0] * 1e3
+    log(f"[avss-train] {AVSS_STEPS - 1} timed AMP steps of [{AVSS_B}x{AVSS_T}x{SIZE}^2], "
+        f"K={AVSS_K}, {AVSS_CLASSES} classes, bf16 forward: median {med:.4f} s/step "
+        f"({AVSS_N / med:.1f} frames/s), warm-up {times[0]:.4f} s, max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB; the matcher (10 outputs x {AVSS_N} frames of [12, 100] cost "
+        f"matrices, one batched JV solve) {matcher_ms:.1f} ms of the {times[-1]:.4f} s step, the "
+        f"solve {solve_ms:.1f} ms of it; launches per step "
+        f"{ {k: v // steps for k, v in counts.items()} } (K2 by type {dtypes}, by plan "
+        f"{plans['k2']}) on {smi}")
+    return {"launches": counts, "s_per_step": med, "peak_bytes": peak, "times": times,
+            "matcher_ms": matcher_ms, "solve_ms": solve_ms, "k2_dtypes": dtypes}
+
+
+class SharedPoints:
+    """The criterion's uncertain-point selection for a comparison of two
+    passes: PointRend keeps the candidate points whose mask logits lie
+    nearest 0, so logits that differ by rounding can select other points
+    and take the mask losses on them. While active, the first pass records
+    each call's points and the second takes them; `differ` counts the
+    points where the second pass's own selection differed (ordered, so a
+    reordering counts too)."""
+
+    def __init__(self):
+        self.recorded, self.replay = [], None
+        self.points = self.differ = 0
+
+    def __enter__(self):
+        from combo_avs_torch.losses import criterion as criterion_mod
+
+        self._module, self._real = criterion_mod, criterion_mod.uncertainty_sampled_points
+        criterion_mod.uncertainty_sampled_points = self._shared
+        return self
+
+    def __exit__(self, *exc):
+        self._module.uncertainty_sampled_points = self._real
+
+    def _shared(self, *args, **kw):
+        coords = self._real(*args, **kw)
+        if self.replay is None:
+            self.recorded.append(coords)
+            return coords
+        want = self.replay.pop(0)
+        self.points += want.shape[0] * want.shape[1]
+        self.differ += int((coords != want).any(-1).sum())
+        return want
+
+
+def phase_avss_amp_vs_fp32(model, cfg) -> dict:
+    """The AMP forward's losses against the fp32 forward's on the card, the
+    same weights, batch and injected draws, in eval mode (no dropout), no
+    gradient. The bf16 pass takes the fp32 pass's discrete choices, each a
+    threshold that rounding can cross: the matching (`SharedMatching`, its
+    own held to what a near-tie allows), the decoder's attention masks
+    (`SharedAttnMask`, likewise) and the uncertain points the mask losses
+    are taken on (`SharedPoints`). Each loss within AVSS_AMP_LOSS_RTOL."""
+    from combo_avs_torch.losses.criterion import build_criterion
+    from combo_avs_torch.train.train_step import compute_losses
+
+    dev = next(model.parameters()).device
+    crit = build_criterion(cfg)
+    matching = crit.matcher = SharedMatching(crit.matcher)
+    masks = SharedAttnMask("avss-amp-vs-fp32", model, model)
+    masks.models = (model,)  # one model, both passes: patched once
+    batch = avss_batch(2, SIZE, dev, seed=SEED + 6)
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    draws = [crit.draw(g, 2 * AVSS_T, AVSS_K) for _ in range(DEC_OUTPUTS)]
+    model.eval()
+    res = {}
+    with torch.no_grad(), tf32_off(), masks, SharedPoints() as points:
+        for name, amp in (("fp32", False), ("amp", True)):
+            if amp:
+                matching.replay = list(matching.recorded)
+                masks.card_pass()
+                points.replay = list(points.recorded)
+            losses = compute_losses(model, crit, batch, torch.Generator(device=dev),
+                                    draws=draws, amp=amp)
+            res[name] = {k: float(v) for k, v in losses.items()}
+    errs = {k: abs(res["amp"][k] - res["fp32"][k]) / max(1.0, abs(res["fp32"][k]))
+            for k in res["fp32"]}
+    worst = max(errs, key=errs.get)
+    log(f"[avss-amp-vs-fp32] 2 videos x {AVSS_T} frames: {len(errs)} losses, worst {worst} "
+        f"{res['amp'][worst]:.6f} (bf16) vs {res['fp32'][worst]:.6f} (fp32), rel err "
+        f"{errs[worst]:.3e} (tol {AVSS_AMP_LOSS_RTOL}); the bf16 pass's own choices differed "
+        f"from the fp32 pass's in {matching.differ} of {matching.slots} matched slots, "
+        f"{masks.flipped} of {masks.positions} attention-mask positions (each a near-tie) "
+        f"and {points.differ} of {points.points} uncertain points; it took the fp32 pass's; "
+        "TF32 off")
+    if errs[worst] > AVSS_AMP_LOSS_RTOL:
+        raise AssertionError(f"[avss-amp-vs-fp32] {worst}: bf16 and fp32 losses disagree")
+    return {"loss_rel_err": errs[worst], "worst": worst, "matching_differ": matching.differ,
+            "attn_mask_flips": masks.flipped, "points_differ": points.differ}
+
+
+def phase_avss_entry(smi: str, tmp: str, bare_s_per_step: float) -> dict:
+    """The AVSS training entry point at full width: `train_net.main` on the
+    shipped avs_ss/COMBO_R50_bs8_90k.yaml (bf16 AMP) over the synthetic AVSS
+    tree under `tmp` (AVSS_TRAIN_VIDEOS train, AVSS_VAL_VIDEOS val videos, v1s,
+    v1m and v2), AVSS_ENTRY_ITERS iterations with an evaluation (the AVSS
+    evaluator's four metrics) and a checkpoint at the last: finite losses,
+    each kernel's launches by plan (K1 6 a step and 6 an eval video, K2 6
+    bf16 a step, K7 none: C = 71), a model_best.pth; no import of jax,
+    flax, yaml, cv2, tensorflow or the JAX package. Returns the output
+    directory's model_best.pth path in the result."""
+    from combo_avs_torch import train_net
+    from combo_avs_torch.ops import deform_attn_cuda
+
+    out_dir = os.path.join(tmp, "avss_out")
+    iters = AVSS_ENTRY_ITERS
+    argv = ["--config-file", AVSS_CONFIG, "--datasets-root", tmp, "--log-every", "1",
+            "OUTPUT_DIR", out_dir, "SOLVER.MAX_ITER", str(iters), "TEST.EVAL_PERIOD",
+            str(iters), "SOLVER.CHECKPOINT_PERIOD", str(iters)]
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer = train_net.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check_imports("[avss-entry] train_net.main")
+    counts, plans = read_counts(), _plans()
+    dtypes = dict(deform_attn_cuda.bwd_dtype_launches)
+    with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    steps = [r for r in rows if "total_loss" in r]
+    evals = [r for r in rows if "mIoU" in r]
+    if [r["iter"] for r in steps] != list(range(1, iters + 1)) or not all(
+            np.isfinite(r["total_loss"]) for r in steps):
+        raise AssertionError(f"[avss-entry] logged steps {steps}")
+    keys = {"mIoU", "f_score", "mIoU_noBg", "f_score_noBg"}
+    if len(evals) != 1 or not keys <= set(evals[0]) or not all(
+            np.isfinite(evals[0][k]) and 0.0 <= evals[0][k] <= 1.0 for k in keys):
+        raise AssertionError(f"[avss-entry] evaluations {evals}, expected one with {keys}")
+    want = {k: v * iters for k, v in TRAIN_LAUNCHES.items()}
+    want["k1"] += 6 * AVSS_VAL_VIDEOS
+    want_plans = {"k1": {"staged": want["k1"], "global": 0},
+                  "k2": {"level_slice": want["k2"], "global": 0},
+                  "k4_dimg": {"staged": want["k4_dimg"], "global": 0},
+                  "k7": {"patch": 0, "pixel": 0}}
+    if counts != want or plans != want_plans or dtypes["bfloat16"] != want["k2"]:
+        raise AssertionError(f"[avss-entry] launches {counts} by plan {plans}, K2 by type "
+                             f"{dtypes}; expected {want} by plan {want_plans}, K2 in bf16")
+    best = os.path.join(out_dir, "model_best.pth")
+    if not os.path.isfile(best) or f"step_{iters}" not in os.listdir(out_dir):
+        raise AssertionError(f"[avss-entry] {sorted(os.listdir(out_dir))}: no model_best.pth "
+                             f"or step_{iters}")
+    timing = trainer.eval_timing.get(trainer.cfg.DATASETS.TEST[0])
+    for r in steps:
+        log(f"[avss-entry] iter {r['iter']}: total_loss {r['total_loss']:.6f}, "
+            f"{r['s_per_iter']:.4f} s/iter, data_time {r['data_time']:.4f} s/iter (bare AMP step "
+            f"{bare_s_per_step:.4f} s/step) on {smi}")
+    ev = {k: evals[0][k] for k in sorted(keys)}
+    log(f"[avss-entry] eval @ {evals[0]['iter']} on {trainer.cfg.DATASETS.TEST[0]}: {ev}; "
+        f"{timing['videos']} videos in {timing['total_s']:.3f} s (data {timing['data_s']:.3f}, "
+        f"compute {timing['compute_s']:.3f}, eval {timing['eval_s']:.3f}); {wall:.1f} s wall; "
+        f"launches {counts} by plan {plans}, K2 by type {dtypes}; model_best.pth written")
+    del trainer
+    torch.cuda.empty_cache()
+    return {"launches": counts, "plans": plans, "rows": steps, "eval": ev,
+            "eval_timing": timing, "wall_s": wall, "model_best": best}
+
+
+def phase_avss_pred(smi: str, tmp: str, checkpoint: str) -> dict:
+    """The AVSS evaluation entry point as a user runs it: `pred --config-file
+    avs_ss/Test_COMBO_R50_bs8_90k.yaml` with the model_best.pth of
+    avss-entry, no `--dataset` or `--bf16`, over the synthetic test split
+    (AVSS_TEST_VIDEOS videos, both frame buckets) at batch EVAL_BATCH: it
+    must score avss_sem_seg_test in bf16 (TEST.BF16 "auto") with the AVSS
+    evaluator; its four metrics in [0, 1], its timers, K1 6 and K7 0 per
+    batch."""
+    from unittest import mock
+
+    from combo_avs_torch import pred
+    from combo_avs_torch.train import evaluate as evaluate_mod
+
+    buckets = {5: AVSS_TEST_VIDEOS - AVSS_TEST_VIDEOS // 3, 10: AVSS_TEST_VIDEOS // 3}
+    batches = sum(-(-n // EVAL_BATCH) for n in buckets.values())
+    timings = []
+    with mock.patch.object(evaluate_mod, "evaluate", timed_evaluate(timings)):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = pred.main(["--datasets-root", tmp, "--checkpoint", checkpoint, "--config-file",
+                         AVSS_TEST_CONFIG, "--batch-size", str(EVAL_BATCH)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    check_imports("[avss-pred] pred.main")
+    counts = read_counts()
+    want = {k: {"k1": 6 * batches}.get(k, 0) for k in counts}
+    if counts != want:
+        raise AssertionError(f"[avss-pred] launches {counts}, expected {want} ({batches} "
+                             "batches: K1 6 and K7 0 a batch)")
+    m, (tm,) = res["sem_seg"], timings
+    scored = (tm["dataset"], tm["bf16"], tm["evaluator"])
+    if scored != ("avss_sem_seg_test", True, "SemSegEvaluatorSS"):
+        raise AssertionError(f"[avss-pred] pred scored {scored}, expected the config's "
+                             "avss_sem_seg_test in bf16 with the AVSS evaluator")
+    if set(m) != {"mIoU", "f_score", "mIoU_noBg", "f_score_noBg"} or not all(
+            np.isfinite(v) and 0.0 <= v <= 1.0 for v in m.values()) or \
+            tm["videos"] != AVSS_TEST_VIDEOS:
+        raise AssertionError(f"[avss-pred] metrics {m} over {tm['videos']} videos")
+    log(f"[avss-pred] {tm['dataset']} (the config's DATASETS.TEST, no --dataset), bf16 "
+        f"(TEST.BF16 auto), {batches} batches of {EVAL_BATCH} ({buckets[5]} 5-frame and "
+        f"{buckets[10]} 10-frame videos): {m}; {tm['videos']} videos, {tm['frames']} frames in "
+        f"{tm['total_s']:.3f} s (data {tm['data_s']:.3f}, compute {tm['compute_s']:.3f}, eval "
+        f"{tm['eval_s']:.3f}): {tm['videos'] / tm['total_s']:.2f} videos/s; pred.main "
+        f"{wall:.1f} s wall; launches {counts} on {smi}")
+    return {"metrics": m, "timing": tm, "launches": counts, "wall_s": wall}
+
+
+def phase_avss(smi: str, dev: torch.device, walls: dict) -> dict:
+    """COMBO-R50 on AVSS at full width: `build_model` of the shipped
+    avs_ss/COMBO_R50_bs8_90k.yaml (71 classes) with seeded weights on the
+    card, the AMP step (avss-train), its losses against fp32's
+    (avss-amp-vs-fp32), then `train_net` on that config (avss-entry) and
+    `pred` on its Test config with the model_best.pth that wrote
+    (avss-pred), both over one synthetic AVSS tree."""
+    import tempfile
+
+    from combo_avs_torch.config import setup_cfg
+    from combo_avs_torch.data.synth import make_avss
+    from combo_avs_torch.models.layers import init_weights
+    from combo_avs_torch.models.meta_arch import build_model
+
+    cfg = setup_cfg(AVSS_CONFIG)
+    t0 = time.perf_counter()
+    model = init_weights(build_model(cfg), seed=SEED)
+    classes = model.sem_seg_head.predictor.class_embed.out_features - 1
+    if next(model.parameters()).device != dev or classes != AVSS_CLASSES:
+        raise AssertionError(f"[avss-model] {classes} classes on "
+                             f"{next(model.parameters()).device}")
+    log(f"[avss-model] build_model({os.path.relpath(AVSS_CONFIG, REPO)}): {classes} classes, "
+        f"SOLVER.AMP.ENABLED {cfg.SOLVER.AMP.ENABLED}, seeded init in "
+        f"{time.perf_counter() - t0:.1f} s")
+    out = {}
+    t0 = time.perf_counter()
+    out["train"] = phase_avss_train(smi, model, cfg)
+    walls["avss-train"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["amp_vs_fp32"] = phase_avss_amp_vs_fp32(model, cfg)
+    walls["avss-amp-vs-fp32"] = time.perf_counter() - t0
+    del model
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        make_avss(tmp, AVSS_TRAIN_VIDEOS, AVSS_VAL_VIDEOS, AVSS_TEST_VIDEOS, size=SIZE)
+        log(f"[avss-entry] synthetic AVSS tree: {AVSS_TRAIN_VIDEOS} train, {AVSS_VAL_VIDEOS} val "
+            f"and {AVSS_TEST_VIDEOS} test videos (v1s, v1m: 5 frames; v2: 10) x {SIZE}^2 in "
+            f"{time.perf_counter() - t0:.1f} s")
+        out["entry"] = phase_avss_entry(smi, tmp, out["train"]["s_per_step"])
+        walls["avss-entry"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["pred"] = phase_avss_pred(smi, tmp, out["entry"]["model_best"])
+        walls["avss-pred"] = time.perf_counter() - t0
+    tr = out["train"]
+    out["summary"] = {
+        "config": os.path.relpath(AVSS_CONFIG, REPO),
+        "train": {"s_per_step": tr["s_per_step"], "step_times_s": tr["times"],
+                  "max_memory_allocated": tr["peak_bytes"], "matcher_ms": tr["matcher_ms"],
+                  "solve_ms": tr["solve_ms"],
+                  "launches_per_step": {k: v // (AVSS_STEPS + 1)
+                                        for k, v in tr["launches"].items()},
+                  "shape": f"{AVSS_B}x{AVSS_T}x{SIZE}^2 K={AVSS_K} C={AVSS_CLASSES} bf16 AMP"},
+        "amp_vs_fp32": out["amp_vs_fp32"],
+        "entry": {k: out["entry"][k] for k in ("rows", "eval", "eval_timing", "wall_s")},
+        "pred": {k: out["pred"][k] for k in ("metrics", "timing", "wall_s")},
+    }
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1788,6 +2260,7 @@ def main(argv=None) -> int:
     tf = timed("train-k6", phase_train_fallback, model)
     del model, twin
     torch.cuda.empty_cache()
+    avss = phase_avss(smi, dev, walls)
     pvt = phase_pvt(smi, dev, walls)
 
     ev, tl, fb, tn = sl["launches"], tr["launches"], tf["launches"], te["launches"]
@@ -1795,7 +2268,8 @@ def main(argv=None) -> int:
     paths = {"eval": ev, "eval_entry": entry, "train": tl, "train_entry": tn,
              "train_fallback": fb, "pvt_eval": pvt["slice"]["launches"],
              "pvt_train": pvt["train"]["launches"], "pvt_train_entry": pvt["entry"]["launches"],
-             "pvt_pred_ms3": pvt["pred_ms3"]["launches"]}
+             "pvt_pred_ms3": pvt["pred_ms3"]["launches"], "avss_train": avss["train"]["launches"],
+             "avss_train_entry": avss["entry"]["launches"], "avss_pred": avss["pred"]["launches"]}
 
     def by_path(k):
         return {name: counts[k] for name, counts in paths.items()}
@@ -1822,10 +2296,17 @@ def main(argv=None) -> int:
                      plans_ms={name: {kn: v["ms"] for kn, v in k1[name]["plans"].items()}
                                for name in ("fp32", "bf16", "train_fp32", "train_bf16")}),
         kernel_entry("ms_deform_attn_bwd", "combo_avs_torch/csrc/ms_deform_attn_bwd.cu",
-                     REPLACES["k2"], by_path("k2"), k2["level_slice"],
+                     REPLACES["k2"], {name: n for name, n in by_path("k2").items()
+                                      if not name.startswith("avss")}, k2["level_slice"],
                      shape="value [40,1029,8,32] fp32", plan="level_slice",
                      **{f"global_{k}": k2["global"][k] for k in ("max_abs_err", "ms", "call_ms",
                                                                  "host_us", "device_source")}),
+        kernel_entry("ms_deform_attn_bwd_bf16", "combo_avs_torch/csrc/ms_deform_attn_bwd.cu",
+                     REPLACES["k2"], {name: paths[name]["k2"] for name in (
+                         "avss_train", "avss_train_entry")}, k2["bf16"],
+                     shape=f"value [{AVSS_N},1029,8,32] bf16 (grad, locations and weights bf16)",
+                     plan="level_slice",
+                     launches_by_type={"avss_train": avss["train"]["k2_dtypes"]}),
         kernel_entry("point_sample_fwd", "combo_avs_torch/csrc/point_sample_fwd.cu",
                      REPLACES["k3"], by_path("k3"),
                      dict(per_layer, max_abs_err=max(s["max_abs_err"] for s in fwd),
@@ -1875,7 +2356,7 @@ def main(argv=None) -> int:
                     "slower_than_library": [r[0] for r in ranked if r[3] > 1],
                     "eval_entry": {k: {"metrics": v["metrics"], "timing": v["timing"]}
                                    for k, v in ee.items()},
-                    "pvt": pvt["summary"], "walls_s": walls}))
+                    "avss": avss["summary"], "pvt": pvt["summary"], "walls_s": walls}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

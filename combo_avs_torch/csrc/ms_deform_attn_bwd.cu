@@ -68,12 +68,23 @@
 //
 // Atomic order (global atomics in one, shared ones in the other) varies from
 // run to run, so dvalue is not bitwise reproducible (a few fp32 roundings of
-// each sum). fp32 value only; the TPU kernel's tent matrices, GV = g V^T
-// matmuls and query blocking were workarounds for serial TPU gathers, and
-// its dval block resident across the query grid axis is what the level-slice
-// kernel's shared slice keeps.
+// each sum). The TPU kernel's tent matrices, GV = g V^T matmuls and query
+// blocking were workarounds for serial TPU gathers, and its dval block
+// resident across the query grid axis is what the level-slice kernel's
+// shared slice keeps.
+//
+// Element types: value and grad are both float32 or both bfloat16 (the bf16
+// AMP training step), as the TPU kernel reads either (deform_attn_pallas.py:
+// 507, 511). Loads convert to fp32, and every product and sum stays fp32, in
+// registers and in the dvalue accumulator (the shared slice, or the global
+// kernel's zeroed fp32 buffer). The level-slice kernel converts dvalue to
+// the value's type in its one final store, as the TPU kernel casts its fp32
+// dval (:595, :617); the global kernel leaves its fp32 sums to the caller,
+// which casts them. In bf16 the staged value rows take 2 bytes an element;
+// the dvalue rows and the staged grad rows stay fp32.
 
 #include <cuda_runtime.h>
+#include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
@@ -87,6 +98,11 @@ struct Levels {
   int w[kMaxLevels];
   int start[kMaxLevels];
 };
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
 // One sampling point, as the lane that owns it sees it: its corner rows (-1
 // outside the level), fractional parts and attention weight.
@@ -121,13 +137,15 @@ __device__ __forceinline__ Point setup_point(const float* __restrict__ loc,
   return p;
 }
 
-// "global": one warp per (b, q, m), all L * P points, dvalue by global atomics.
+// "global": one warp per (b, q, m), all L * P points, dvalue by global
+// atomics into a zeroed fp32 buffer.
+template <typename T>
 __global__ void __launch_bounds__(kGlobalWarps * 32)
-ms_deform_attn_bwd_global(const float* __restrict__ value,  // [B, S, M, D]
+ms_deform_attn_bwd_global(const T* __restrict__ value,      // [B, S, M, D]
                           const float* __restrict__ loc,    // [B, Lq, M, L, P, 2]
                           const float* __restrict__ attw,   // [B, Lq, M, L, P]
-                          const float* __restrict__ grad,   // [B, Lq, M * D]
-                          float* __restrict__ dvalue,       // [B, S, M, D], zeroed
+                          const T* __restrict__ grad,       // [B, Lq, M * D]
+                          float* __restrict__ dvalue,       // [B, S, M, D] fp32, zeroed
                           float* __restrict__ dloc,         // [B, Lq, M, L, P, 2]
                           float* __restrict__ dattw,        // [B, Lq, M, L, P]
                           int S, int Lq, int M, int D, int L, int P, Levels lv) {
@@ -145,9 +163,9 @@ ms_deform_attn_bwd_global(const float* __restrict__ value,  // [B, S, M, D]
 
   const int64_t row_stride = (int64_t)M * D;  // elements between value rows
   const int64_t vofs = (int64_t)b * S * row_stride + (int64_t)m * D;
-  const float* vbase = value + vofs;
+  const T* vbase = value + vofs;
   float* dvbase = dvalue + vofs;
-  const float* gbase = grad + ((int64_t)b * Lq + q) * row_stride + (int64_t)m * D;
+  const T* gbase = grad + ((int64_t)b * Lq + q) * row_stride + (int64_t)m * D;
 
   float my_dw = 0.f, my_dx = 0.f, my_dy = 0.f;  // kept by the lane that owns the point
   for (int i = 0; i < LP; ++i) {
@@ -163,12 +181,12 @@ ms_deform_attn_bwd_global(const float* __restrict__ value,  // [B, S, M, D]
     for (int c0 = 0; c0 < D; c0 += 32) {
       const int c = c0 + lane;
       const bool active = c < D;
-      const float g = active ? gbase[c] : 0.f;
+      const float g = active ? to_float(gbase[c]) : 0.f;
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
         if (r[k] < 0) continue;  // warp-uniform: the row is the point's
         const float w = wx[k & 1] * wy[k >> 1];
-        const float s = active ? g * vbase[r[k] * row_stride + c] : 0.f;
+        const float s = active ? g * to_float(vbase[r[k] * row_stride + c]) : 0.f;
         sw = fmaf(w, s, sw);
         sx = fmaf((k & 1) ? wy[k >> 1] : -wy[k >> 1], s, sx);
         sy = fmaf((k >> 1) ? wx[k & 1] : -wx[k & 1], s, sy);
@@ -199,32 +217,46 @@ __device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
 }
 
+// Copies one value element into the staged slice: cp.async for fp32, a plain
+// 2-byte load and store for bf16 (cp.async moves 4, 8 or 16 bytes).
+__device__ __forceinline__ void stage(float* smem, const float* gmem) { cp_async4(smem, gmem); }
+__device__ __forceinline__ void stage(__nv_bfloat16* smem, const __nv_bfloat16* gmem) {
+  *smem = *gmem;
+}
+
+// The staged value slice's bytes, rounded up to 16 so that the fp32 dvalue
+// slice after it is aligned.
+__host__ __device__ __forceinline__ int value_slice_bytes(int slice, int esize) {
+  return (slice * esize + 15) / 16 * 16;
+}
+
 // "level_slice": one block per (b, m, l), blockIdx.x = m * L + l and
 // blockIdx.y = b. Dynamic shared memory holds the level's value rows of head
-// m and its dvalue rows (each [H_l * W_l, D], `slice` floats reserved for
-// the largest level) and each warp's grad rows ([32 / P, D]).
-template <int kWarps>
+// m ([H_l * W_l, D] of T, `slice` elements reserved for the largest level),
+// its fp32 dvalue rows (`slice` floats) and each warp's fp32 grad rows
+// ([32 / P, D]).
+template <typename T, int kWarps>
 __global__ void __launch_bounds__(kWarps * 32)
-ms_deform_attn_bwd_level(const float* __restrict__ value, const float* __restrict__ loc,
-                         const float* __restrict__ attw, const float* __restrict__ grad,
-                         float* __restrict__ dvalue,  // [B, S, M, D], every element written
+ms_deform_attn_bwd_level(const T* __restrict__ value, const float* __restrict__ loc,
+                         const float* __restrict__ attw, const T* __restrict__ grad,
+                         T* __restrict__ dvalue,  // [B, S, M, D], every element written
                          float* __restrict__ dloc, float* __restrict__ dattw, int S, int Lq,
                          int M, int D, int L, int P, Levels lv, int slice) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int m = blockIdx.x / L, l = blockIdx.x - m * L, b = blockIdx.y;
   const int H = lv.h[l], W = lv.w[l], HW = H * W;
   const int per_warp = 32 / P;  // queries a warp takes at a time, all P points each
-  float* vs = smem;
-  float* ds = smem + slice;
-  float* gs = smem + 2 * slice + warp * per_warp * D;
+  T* vs = reinterpret_cast<T*>(smem_raw);
+  float* ds = reinterpret_cast<float*>(smem_raw + value_slice_bytes(slice, sizeof(T)));
+  float* gs = ds + slice + warp * per_warp * D;
 
   const int64_t row_stride = (int64_t)M * D;
   // the level's first value row of head m in frame b
   const int64_t lofs = ((int64_t)b * S + lv.start[l]) * row_stride + (int64_t)m * D;
   for (int r = warp; r < HW; r += kWarps)
     for (int c = lane; c < D; c += 32) {
-      cp_async4(vs + r * D + c, value + lofs + r * row_stride + c);
+      stage(vs + r * D + c, value + lofs + r * row_stride + c);
       ds[r * D + c] = 0.f;
     }
   asm volatile("cp.async.wait_all;\n" ::: "memory");
@@ -232,12 +264,12 @@ ms_deform_attn_bwd_level(const float* __restrict__ value, const float* __restric
 
   const int LP = L * P;
   const int p = lane % P, ql = lane / P;  // this lane's point, and its query in the warp's group
-  const float* gsrc = grad + (int64_t)b * Lq * row_stride + (int64_t)m * D;
+  const T* gsrc = grad + (int64_t)b * Lq * row_stride + (int64_t)m * D;
   const float* grow = gs + (ql < per_warp ? ql : 0) * D;
   for (int q0 = warp * per_warp; q0 < Lq; q0 += kWarps * per_warp) {
     for (int i = lane; i < per_warp * D; i += 32) {
       const int qi = i / D, q = q0 + qi;
-      gs[i] = q < Lq ? __ldg(gsrc + q * row_stride + (i - qi * D)) : 0.f;
+      gs[i] = q < Lq ? to_float(gsrc[q * row_stride + (i - qi * D)]) : 0.f;
     }
     __syncwarp();
     const int q = q0 + ql;
@@ -256,14 +288,14 @@ ms_deform_attn_bwd_level(const float* __restrict__ value, const float* __restric
       sum[k] = 0.f;
     }
     // each lane starts at its own channel and wraps around, so at D = 32
-    // the warp's 32 accesses to a row of each array fall in distinct banks
+    // the warp's 32 accesses to a row of each fp32 array fall in distinct banks
     int c = lane % D;
 #pragma unroll 4
     for (int i = 0; i < D; ++i) {
       const float g = grow[c];
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
-        sum[k] = fmaf(g, vs[ofs[k] + c], sum[k]);
+        sum[k] = fmaf(g, to_float(vs[ofs[k] + c]), sum[k]);
         if (me.row[k] >= 0) atomicAdd(ds + ofs[k] + c, aw[k] * g);
       }
       c = c + 1 == D ? 0 : c + 1;
@@ -284,97 +316,122 @@ ms_deform_attn_bwd_level(const float* __restrict__ value, const float* __restric
     }
   }
   __syncthreads();
-  float* out = dvalue + lofs;
+  T* out = dvalue + lofs;
   for (int r = warp; r < HW; r += kWarps)
-    for (int c = lane; c < D; c += 32) out[r * row_stride + c] = ds[r * D + c];
+    for (int c = lane; c < D; c += 32) store(out + r * row_stride + c, ds[r * D + c]);
 }
 
 // Raise kernel's dynamic shared-memory limit to `bytes` on the current device,
 // once per device and size.
-template <int kWarps>
+template <typename T, int kWarps>
 cudaError_t allow_smem(int bytes) {
   static int allowed[kMaxDevices] = {};
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (dev < kMaxDevices && allowed[dev] >= bytes) return cudaSuccess;
-  e = cudaFuncSetAttribute(ms_deform_attn_bwd_level<kWarps>,
+  e = cudaFuncSetAttribute(ms_deform_attn_bwd_level<T, kWarps>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e == cudaSuccess && dev < kMaxDevices) allowed[dev] = bytes;
   return e;
 }
 
-template <int kWarps>
-int launch_level(const float* value, const float* loc, const float* attw, const float* grad,
-                 float* dvalue, float* dloc, float* dattw, int B, int S, int Lq, int M, int D,
+template <typename T, int kWarps>
+int launch_level(const void* value, const float* loc, const float* attw, const void* grad,
+                 void* dvalue, float* dloc, float* dattw, int B, int S, int Lq, int M, int D,
                  int L, int P, const Levels& lv, int largest, int grid_x, int smem,
                  cudaStream_t s) {
   if (smem > 48 * 1024) {
-    const cudaError_t e = allow_smem<kWarps>(smem);
+    const cudaError_t e = allow_smem<T, kWarps>(smem);
     if (e != cudaSuccess) return (int)e;
   }
-  ms_deform_attn_bwd_level<kWarps><<<dim3(grid_x, B), kWarps * 32, smem, s>>>(
-      value, loc, attw, grad, dvalue, dloc, dattw, S, Lq, M, D, L, P, lv, largest * D);
+  ms_deform_attn_bwd_level<T, kWarps><<<dim3(grid_x, B), kWarps * 32, smem, s>>>(
+      static_cast<const T*>(value), loc, attw, static_cast<const T*>(grad),
+      static_cast<T*>(dvalue), dloc, dattw, S, Lq, M, D, L, P, lv, largest * D);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_level_warps(int threads, const void* value, const float* loc, const float* attw,
+                       const void* grad, void* dvalue, float* dloc, float* dattw, int B, int S,
+                       int Lq, int M, int D, int L, int P, const Levels& lv, int largest,
+                       int grid_x, int smem, cudaStream_t s) {
+#define LAUNCH_LEVEL(warps)                                                                 \
+  launch_level<T, warps>(value, loc, attw, grad, dvalue, dloc, dattw, B, S, Lq, M, D, L, P, \
+                         lv, largest, grid_x, smem, s)
+  switch (threads) {
+    case 256: return LAUNCH_LEVEL(8);
+    case 512: return LAUNCH_LEVEL(16);
+    case 768: return LAUNCH_LEVEL(24);
+    case 1024: return LAUNCH_LEVEL(32);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef LAUNCH_LEVEL
 }
 
 }  // namespace
 
-// value, loc, attw, grad float32; dloc, dattw float32; dvalue float32, zeroed
-// by the caller for the global kernel (the level-slice kernel writes every
-// element). plan holds B, S, Lq, M, D, L, P, the kernel (0 global, 1
-// level_slice), threads per block, grid x (blocks per frame; the grid has B
-// rows), dynamic shared-memory bytes, then (H_l, W_l) for the L <= 4 levels
-// in value's level order (ops/deform_attn_cuda.py::_plan_args). Returns
+// value and grad float32 (dtype 0) or bfloat16 (dtype 1), both the same;
+// loc, attw, dloc and dattw float32. dvalue: for the global kernel a float32
+// buffer zeroed by the caller, which casts it to the value's type; for the
+// level-slice kernel the value's type, every element written. plan holds B,
+// S, Lq, M, D, L, P, dtype, the kernel (0 global, 1 level_slice), threads
+// per block, grid x (blocks per frame; the grid has B rows), dynamic
+// shared-memory bytes, then (H_l, W_l) for the L <= 4 levels in value's
+// level order (ops/deform_attn_cuda.py::plan_args). Returns
 // cudaGetLastError() after the launch (0 = launched), or the error that
 // stopped it.
 extern "C" int ms_deform_attn_bwd(const void* value, const void* loc, const void* attw,
                                   const void* grad, void* dvalue, void* dloc, void* dattw,
                                   const int* plan, void* stream) {
   const int B = plan[0], S = plan[1], Lq = plan[2], M = plan[3], D = plan[4], L = plan[5],
-            P = plan[6], kernel = plan[7], threads = plan[8], grid_x = plan[9], smem = plan[10];
+            P = plan[6], dtype = plan[7], kernel = plan[8], threads = plan[9],
+            grid_x = plan[10], smem = plan[11];
   const int bad = (int)cudaErrorInvalidValue;
   if (L < 1 || L > kMaxLevels || P < 1 || L * P > 32 || B < 1 || B > 65535 || Lq < 1 ||
-      M < 1 || D < 1 || grid_x < 1)
+      M < 1 || D < 1 || grid_x < 1 || (dtype != 0 && dtype != 1))
     return bad;
   Levels lv = {};
   int start = 0, largest = 0;
   for (int l = 0; l < L; ++l) {
-    lv.h[l] = plan[11 + 2 * l];
-    lv.w[l] = plan[12 + 2 * l];
+    lv.h[l] = plan[12 + 2 * l];
+    lv.w[l] = plan[13 + 2 * l];
     lv.start[l] = start;
     start += lv.h[l] * lv.w[l];
     largest = lv.h[l] * lv.w[l] > largest ? lv.h[l] * lv.w[l] : largest;
   }
   if (start != S) return bad;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* v = static_cast<const float*>(value);
   const float* lc = static_cast<const float*>(loc);
   const float* a = static_cast<const float*>(attw);
-  const float* g = static_cast<const float*>(grad);
-  float* dv = static_cast<float*>(dvalue);
   float* dl = static_cast<float*>(dloc);
   float* da = static_cast<float*>(dattw);
   if (kernel == 0) {
     if (threads != kGlobalWarps * 32 || (int64_t)grid_x * kGlobalWarps < (int64_t)Lq * M ||
         smem != 0)
       return bad;
-    ms_deform_attn_bwd_global<<<dim3(grid_x, B), threads, 0, s>>>(v, lc, a, g, dv, dl, da, S, Lq,
-                                                                 M, D, L, P, lv);
+    float* dv = static_cast<float*>(dvalue);
+    if (dtype == 1)
+      ms_deform_attn_bwd_global<__nv_bfloat16><<<dim3(grid_x, B), threads, 0, s>>>(
+          static_cast<const __nv_bfloat16*>(value), lc, a,
+          static_cast<const __nv_bfloat16*>(grad), dv, dl, da, S, Lq, M, D, L, P, lv);
+    else
+      ms_deform_attn_bwd_global<float><<<dim3(grid_x, B), threads, 0, s>>>(
+          static_cast<const float*>(value), lc, a, static_cast<const float*>(grad), dv, dl, da,
+          S, Lq, M, D, L, P, lv);
     return (int)cudaGetLastError();
   }
-  // shared memory: the value and dvalue slices, and each warp's grad rows
+  // shared memory: the value slice (rounded up to 16 bytes), the fp32 dvalue
+  // slice, and each warp's fp32 grad rows
+  const int esize = dtype == 1 ? 2 : 4;
   if (kernel != 1 || grid_x != M * L ||
-      ((int64_t)2 * largest + (int64_t)threads / 32 * (32 / P)) * D * 4 != smem)
+      (int64_t)value_slice_bytes(largest * D, esize) +
+              ((int64_t)largest + (int64_t)threads / 32 * (32 / P)) * D * 4 !=
+          smem)
     return bad;
-#define LAUNCH_LEVEL(warps) \
-  launch_level<warps>(v, lc, a, g, dv, dl, da, B, S, Lq, M, D, L, P, lv, largest, grid_x, smem, s)
-  switch (threads) {
-    case 256: return LAUNCH_LEVEL(8);
-    case 512: return LAUNCH_LEVEL(16);
-    case 768: return LAUNCH_LEVEL(24);
-    case 1024: return LAUNCH_LEVEL(32);
-    default: return bad;
-  }
-#undef LAUNCH_LEVEL
+  if (dtype == 1)
+    return launch_level_warps<__nv_bfloat16>(threads, value, lc, a, grad, dvalue, dl, da, B, S,
+                                             Lq, M, D, L, P, lv, largest, grid_x, smem, s);
+  return launch_level_warps<float>(threads, value, lc, a, grad, dvalue, dl, da, B, S, Lq, M, D,
+                                   L, P, lv, largest, grid_x, smem, s);
 }

@@ -9,13 +9,21 @@ Port of the S4 and MS3 parts of `combo_avs_tpu/data/catalogs.py`
   *_mask_color.png; the train split annotates only the first frame
   (ref :18,49-52);
 * MS3 (ref: register_avsms3_sem.py): the same without the category level,
-  every frame annotated.
-Records are plain dicts, equal key for key to the JAX package's. AVSS is not
-ported yet.
+  every frame annotated;
+* AVSS (ref: register_avss_sem.py:25-121): `metadata.csv` (uid, label =
+  the subset v1s / v1m / v2, split) and `label2idx.json` (the 71 class
+  names), with <subset>/<uid>/processed_frames/*.png, index-label PNGs in
+  processed_labels_semantic/, audio.pkl, and pre_SAM_mask/<subset>/<uid>/
+  processed_frames/*_mask_color.png. v1s and v1m videos have 5 frames, v2
+  videos 10 (ref :35-48); v1s train videos keep their first label only.
+Records are plain dicts, equal key for key to the JAX package's. The JAX
+package reads `metadata.csv` with pandas; the port with the `csv` module.
 """
 
 from __future__ import annotations
 
+import csv
+import json
 import os
 from typing import Callable, Dict, List, Optional
 
@@ -25,6 +33,7 @@ MetadataCatalog: Dict[str, dict] = {}
 # S4 and MS3 alike
 BINARY_METADATA = {"stuff_classes": ["background", "object"], "ignore_label": 255,
                    "evaluator_type": "sem_seg", "num_frames": 5}
+AVSS_CLASSES = 71  # AVSBench-semantic: 70 sounding classes and the background
 
 
 def register(name: str, fn: Callable[[], List[dict]], metadata: dict) -> None:
@@ -97,17 +106,73 @@ def load_avsms3_records(root: str, split: str, pre_mask_root: Optional[str] = No
     return records
 
 
+def load_avss_records(root: str, split: str, pre_mask_root: Optional[str] = None) -> List[dict]:
+    """root: the AVSS directory holding metadata.csv, label2idx.json and
+    <subset>/<video>/ directories. One record per video of `split`, in the
+    order of metadata.csv; v1s and v1m videos keep their first 5 frames,
+    v2 videos 10 (the frame and GT flags of ref: register_avss_sem.py:35-48)."""
+    with open(os.path.join(root, "metadata.csv"), newline="") as f:
+        rows = [r for r in csv.DictReader(f) if r["split"] == split]
+    records = []
+    for row in rows:
+        video, subset = row["uid"], row["label"]
+        vdir = os.path.join(root, subset, video)
+        img_dir = os.path.join(vdir, "processed_frames")
+        lbl_dir = os.path.join(vdir, "processed_labels_semantic")
+        frames = _png_sorted(img_dir) if os.path.isdir(img_dir) else []
+        labels = _png_sorted(lbl_dir) if os.path.isdir(lbl_dir) else []
+        if subset == "v1s":
+            vid_flag = [1] * 5
+            gt_flag = [1, 0, 0, 0, 0] if split == "train" else [1] * 5
+            if split == "train":
+                labels = labels[:1]  # a v1s train video annotates its first frame only
+        elif subset == "v1m":
+            vid_flag = gt_flag = [1] * 5
+        else:  # v2
+            vid_flag = gt_flag = [1] * 10
+        rec = {
+            "video": video,
+            "subset": subset,
+            "file_names": frames[:len(vid_flag)],
+            "sem_seg_file_names": labels,
+            "audio_file_name": os.path.join(vdir, "audio.pkl"),
+            "num_frames": len(vid_flag),
+            "gt_temporal_mask_flag": list(gt_flag),
+            "vid_temporal_mask_flag": list(vid_flag),
+        }
+        if pre_mask_root:
+            pdir = os.path.join(pre_mask_root, subset, video, "processed_frames")
+            if os.path.isdir(pdir):
+                rec["pre_mask_file_names"] = [
+                    p for p in _png_sorted(pdir) if p.endswith("_mask_color.png")]
+        records.append(rec)
+    return records
+
+
+def avss_metadata(root: str) -> dict:
+    """The AVSS splits' metadata: the class names of label2idx.json (0..70
+    without one), the AVSS evaluator and 10 frames."""
+    classes = list(range(AVSS_CLASSES))
+    path = os.path.join(root, "label2idx.json")
+    if os.path.exists(path):
+        with open(path) as f:
+            classes = list(json.load(f).keys())
+    return {"stuff_classes": classes, "ignore_label": 255, "evaluator_type": "sem_seg_ss",
+            "num_frames": 10}
+
+
 def _first_dir(*candidates: Optional[str]) -> Optional[str]:
     return next((c for c in candidates if c and os.path.isdir(c)), None)
 
 
 def register_all(datasets_root: str) -> None:
-    """Register avss4_sem_seg_{train,val,test} and avsms3_sem_seg_{train,
-    val,test}, with the pre-SAM Maskiges COMBO takes, under a dataset root:
-    either a parent holding Single-source/s4_data and Multi-sources/
-    ms3_data, or the reference's per-benchmark root that points at
-    .../Single-source or .../Multi-sources itself (ref:
-    register_avss4_sem.py:117-119)."""
+    """Register avss4_sem_seg_{train,val,test}, avsms3_sem_seg_{train,val,
+    test} and avss_sem_seg_{train,val,test}, with the pre-SAM Maskiges COMBO
+    takes, under a dataset root: either a parent holding Single-source/
+    s4_data, Multi-sources/ms3_data and AVSS (or AVSBench_semantic), or the
+    reference's per-benchmark root that points at .../Single-source,
+    .../Multi-sources or the AVSS directory itself (ref:
+    register_avss4_sem.py:117-119, register_avss_sem.py:147-150)."""
     norm = datasets_root.rstrip("/")
     roots = {
         "avss4": (load_avss4_records, _first_dir(
@@ -116,14 +181,19 @@ def register_all(datasets_root: str) -> None:
         "avsms3": (load_avsms3_records, _first_dir(
             os.path.join(datasets_root, "Multi-sources", "ms3_data"),
             os.path.join(norm, "ms3_data") if norm.endswith("Multi-sources") else None)),
+        "avss": (load_avss_records, _first_dir(
+            os.path.join(datasets_root, "AVSS"),
+            os.path.join(datasets_root, "AVSBench_semantic"),
+            norm if os.path.isfile(os.path.join(norm, "metadata.csv")) else None)),
     }
     for bench, (load, root) in roots.items():
         if root is None:
             continue
         pre = os.path.join(root, "pre_SAM_mask")
+        meta = avss_metadata(root) if bench == "avss" else BINARY_METADATA
         for split in ("train", "val", "test"):
             # bind the loader, root and Maskige root now: they are the loop's
             # names, and a late-binding closure would give every benchmark's
             # records the last one's
             register(f"{bench}_sem_seg_{split}",
-                     lambda s=split, f=load, r=root, p=pre: f(r, s, p), dict(BINARY_METADATA))
+                     lambda s=split, f=load, r=root, p=pre: f(r, s, p), dict(meta))

@@ -2,15 +2,19 @@
 static-shape targets.
 
 Port of `combo_avs_tpu/data/mappers.py::AVSSemanticDatasetMapper.__call__`
-for the binary benchmarks (S4, MS3; ref: models/data/dataset_mappers/
-avss4_semantic_dataset_mapper.py:60-240):
+for the three benchmarks (S4, MS3: ref: models/data/dataset_mappers/
+avss4_semantic_dataset_mapper.py:60-240; AVSS: avss_semantic_dataset_mapper.py):
 
-* frames, Maskiges and GT decoded from PNG (`data/png.py`); GT // 255 ->
-  {0, 1} (ref :139; AVSS's index labels are not ported);
+* frames, Maskiges and GT decoded from PNG (`data/png.py`); a binary GT
+  (S4, MS3) // 255 -> {0, 1} (ref :139), AVSS's index labels (0..70, 255
+  ignored) as they are;
 * in training, one transform per video (`data/transforms.py`: resize to a
   short side drawn from `min_sizes`, random crop, SSD colour jitter, flip),
   replayed on every frame; the Maskige takes it without the colour jitter,
-  the GT with nearest-neighbour resizing (ref :70-95, :154-166);
+  the GT with nearest-neighbour resizing (ref :70-95, :154-166). AVSS
+  frames come resized offline, so its transform has no resize or crop,
+  only the colour jitter and the flip (ref: avss_semantic_dataset_mapper.py:
+  100-104);
 * image and Maskige padded to `size_divisibility` with 128, GT with the
   ignore label 255 (ref :176-188);
 * per-frame targets from the classes present, in K static slots with a
@@ -43,6 +47,7 @@ from combo_avs_torch.data.transforms import sample_video_transform
 
 IGNORE_LABEL = 255  # MODEL.SEM_SEG_HEAD.IGNORE_VALUE
 MAX_INSTANCES = 3  # target slots of the binary benchmarks (S4, MS3)
+AVSS_MAX_INSTANCES = 12  # AVSS's (combo_avs_tpu/train/trainer.py:59-60)
 
 
 def _pad_to(x: np.ndarray, size: int, value: float) -> np.ndarray:
@@ -64,27 +69,30 @@ def load_audio(path: str) -> np.ndarray:
 
 
 class AVSSemanticDatasetMapper:
-    """The mapper of the binary benchmarks (S4, MS3), with the pre-SAM
-    Maskiges COMBO takes. `size_divisibility` is INPUT.SIZE_DIVISIBILITY
-    (224 for S4); 0 keeps the frame's own size. With `is_train` and
-    `augmentation` each video gets a sampled transform: `min_sizes` and
-    `max_size` (INPUT.MIN_SIZE_TRAIN, MAX_SIZE_TRAIN), `crop_size`
-    (INPUT.CROP.SIZE, None when the crop is off) and `color_aug`
-    (INPUT.COLOR_AUG_SSD); the flip is always drawn. The defaults are the
-    shipped S4 recipe's (combo_avs_tpu/configs/avs_s4/
-    R50-AVSS4-SemanticSegmentation.yaml:48-81)."""
+    """The mapper of the three benchmarks, with the pre-SAM Maskiges COMBO
+    takes. `size_divisibility` is INPUT.SIZE_DIVISIBILITY (224 for S4); 0
+    keeps the frame's own size. With `is_train` and `augmentation` each video
+    gets a sampled transform: `min_sizes` and `max_size` (INPUT.MIN_SIZE_TRAIN,
+    MAX_SIZE_TRAIN), `crop_size` (INPUT.CROP.SIZE, None when the crop is off)
+    and `color_aug` (INPUT.COLOR_AUG_SSD); the flip is always drawn; with
+    `geometric_aug` off (AVSS) the transform keeps the frame's size and has
+    no crop. `binary_gt` (S4, MS3) maps a 0/255 GT to {0, 1}; off (AVSS) the
+    GT is index labels. The defaults are the shipped S4 recipe's
+    (combo_avs_tpu/configs/avs_s4/R50-AVSS4-SemanticSegmentation.yaml:48-81)."""
 
     def __init__(self, size_divisibility: int = 224, is_train: bool = False,
                  augmentation: bool = True,
                  min_sizes: Sequence[int] = tuple(int(x * 0.1 * 224) for x in range(5, 21)),
                  max_size: int = 896, crop_size: Optional[Tuple[int, int]] = (224, 224),
                  color_aug: bool = True, ignore_label: int = IGNORE_LABEL,
-                 max_instances: int = MAX_INSTANCES, seed: int = 0):
+                 max_instances: int = MAX_INSTANCES, binary_gt: bool = True,
+                 geometric_aug: bool = True, seed: int = 0):
         self.size_divisibility = size_divisibility
         self.augmentation = augmentation and is_train
         self.min_sizes, self.max_size = tuple(min_sizes), max_size
         self.crop_size, self.color_aug = crop_size, color_aug
         self.ignore_label, self.max_instances = ignore_label, max_instances
+        self.binary_gt, self.geometric_aug = binary_gt, geometric_aug
         self._seed = seed
 
     def __call__(self, record: Dict, n: Optional[int] = None) -> Dict[str, np.ndarray]:
@@ -95,7 +103,8 @@ class AVSSemanticDatasetMapper:
         images = [read_png(p) for p in record["file_names"]]
         gts: List[Optional[np.ndarray]] = [None] * T
         for i, p in enumerate(record.get("sem_seg_file_names", [])[:T]):
-            gts[i] = (read_png(p, gray=True) // 255).astype(np.uint8)
+            g = read_png(p, gray=True)
+            gts[i] = (g // 255 if self.binary_gt else g).astype(np.uint8)
         pres = None
         if record.get("pre_mask_file_names"):
             pres = [read_png(p) for p in record["pre_mask_file_names"][:T]]
@@ -104,9 +113,13 @@ class AVSSemanticDatasetMapper:
         if self.augmentation:
             rng = np.random.RandomState(
                 np.random.SeedSequence([self._seed, n]).generate_state(1)[0])
-            tf = sample_video_transform(rng, images[0].shape[:2], self.min_sizes,
-                                        self.max_size, self.crop_size, self.color_aug,
-                                        flip=True)
+            hw = images[0].shape[:2]
+            if self.geometric_aug:
+                tf = sample_video_transform(rng, hw, self.min_sizes, self.max_size,
+                                            self.crop_size, self.color_aug, flip=True)
+            else:  # the short side drawn from the frame's own: its size, no crop
+                tf = sample_video_transform(rng, hw, [min(hw)], self.max_size, None,
+                                            self.color_aug, flip=True)
         S = self.size_divisibility if self.size_divisibility > 0 else images[0].shape[0]
         # the valid (pre-padding) region after the video's transform, which
         # the prediction is cropped back to (ref: maskformer_model.py:411-433)

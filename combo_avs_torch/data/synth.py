@@ -1,23 +1,30 @@
-"""Synthetic AVSBench S4 and MS3 trees on disk, written without cv2.
+"""Synthetic AVSBench S4, MS3 and AVSS trees on disk, written without cv2.
 
-The S4 part of `scripts/make_synth_dataset.py` (`make_s4` and its helpers),
-with the port's PNG encoder: 5-frame videos of frames, Maskiges, GT masks and
-pickled log-mels in the exact layout `data/catalogs.py` walks
-(ref: models/data/datasets/register_avss4_sem.py:17-58); and `make_ms3`, the
-same videos in the MS3 layout (no category level, all five frames
-annotated in every split; ref: register_avsms3_sem.py). The content is
+The S4 and AVSS parts of `scripts/make_synth_dataset.py` (`make_s4`,
+`make_avss` and their helpers), with the port's PNG encoder: 5-frame videos
+of frames, Maskiges, GT masks and pickled log-mels in the exact layout
+`data/catalogs.py` walks (ref: models/data/datasets/register_avss4_sem.py:
+17-58); `make_ms3`, the same videos in the MS3 layout (no category level,
+all five frames annotated in every split; ref: register_avsms3_sem.py); and
+`make_avss`, the AVSS layout (ref: register_avss_sem.py:25-121): a mix of
+v1s, v1m (5 frames) and v2 (10 frames) videos whose GT is an index-label
+PNG (the shape painted with one of the 70 sounding classes on background
+0), listed in metadata.csv with label2idx.json beside it. The JAX script
+writes train rows only; this one writes train, val and test rows. The content is
 learnable, not noise: each of 10 categories is a (shape, colour, audio band)
 triple drifting over a smooth textured background. The background is a
 bicubic upsample of 14 x 14 noise, as the JAX package's script makes it,
 though not bit for bit (PyTorch's bicubic, not cv2's).
 
     python -m combo_avs_torch.data.synth --root DIR [--s4-train 96] [--s4-val 48] \
-        [--ms3-train 0] [--ms3-val 0] [--size 224]
+        [--ms3-train 0] [--ms3-val 0] [--ms3-test 0] [--avss-train 0] [--avss-val 0] \
+        [--avss-test 0] [--size 224]
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import pickle
 
@@ -97,12 +104,12 @@ def _write(path: str, img: np.ndarray) -> None:
 
 
 def _make(data: str, n_train: int, n_val: int, size: int, by_category: bool,
-          train_gt: int) -> str:
-    """Write train and val splits of 5-frame videos under `data`, in a
+          train_gt: int, n_test: int = 0) -> str:
+    """Write train, val and test splits of 5-frame videos under `data`, in a
     category directory a video when `by_category`; train videos carry GT for
-    their first `train_gt` frames, val videos for all five."""
+    their first `train_gt` frames, val and test videos for all five."""
     rng = np.random.RandomState(0)
-    for split, n in (("train", n_train), ("val", n_val)):
+    for split, n in (("train", n_train), ("val", n_val), ("test", n_test)):
         for v in range(n):
             cat_id = v % N_CATEGORIES
             vid = f"{split}_v{v:04d}"
@@ -131,11 +138,46 @@ def make_s4(root: str, n_train: int, n_val: int, size: int = FRAME) -> str:
                  by_category=True, train_gt=1)
 
 
-def make_ms3(root: str, n_train: int, n_val: int, size: int = FRAME) -> str:
-    """Write the MS3 train and val splits under `root`; returns the ms3_data
-    directory. Every frame of every video carries GT."""
+def make_ms3(root: str, n_train: int, n_val: int, size: int = FRAME, n_test: int = 0) -> str:
+    """Write the MS3 train, val and test splits under `root`; returns the
+    ms3_data directory. Every frame of every video carries GT."""
     return _make(os.path.join(root, "Multi-sources", "ms3_data"), n_train, n_val, size,
-                 by_category=False, train_gt=5)
+                 by_category=False, train_gt=5, n_test=n_test)
+
+
+def make_avss(root: str, n_train: int, n_val: int, n_test: int = 0, size: int = FRAME) -> str:
+    """Write the AVSS train, val and test splits under `root`; returns the
+    AVSS directory. Video v of a split is a v1s, v1m or v2 video as v % 3
+    is 0, 1 or 2 (5, 5 or 10 frames), of category v % 10, its shape painted
+    with class 1 + v % 70; every frame carries its label (the catalog keeps a
+    v1s train video's first)."""
+    avss = os.path.join(root, "AVSS")
+    os.makedirs(avss, exist_ok=True)
+    with open(os.path.join(avss, "label2idx.json"), "w") as f:
+        json.dump({f"class{i:02d}": i for i in range(71)}, f)
+    rng = np.random.RandomState(1)
+    rows = ["uid,label,split"]
+    for split, n in (("train", n_train), ("val", n_val), ("test", n_test)):
+        for v in range(n):
+            subset = ("v1s", "v1m", "v2")[v % 3]
+            T = 10 if subset == "v2" else 5
+            vid = f"{split}_{subset}_{v:04d}"
+            cat_id = v % N_CATEGORIES
+            cls = 1 + v % 70
+            frames, masks, maskiges = _video_frames(rng, cat_id, T, size)
+            vdir = os.path.join(avss, subset, vid)
+            for t in range(T):
+                _write(os.path.join(vdir, "processed_frames", f"{t}.png"), frames[t])
+                _write(os.path.join(avss, "pre_SAM_mask", subset, vid, "processed_frames",
+                                    f"{t}_mask_color.png"), maskiges[t])
+                _write(os.path.join(vdir, "processed_labels_semantic", f"{t}.png"),
+                       (masks[t] > 0).astype(np.uint8) * cls)
+            with open(os.path.join(vdir, "audio.pkl"), "wb") as f:
+                pickle.dump(_mel(rng, cat_id, T), f)
+            rows.append(f"{vid},{subset},{split}")
+    with open(os.path.join(avss, "metadata.csv"), "w") as f:
+        f.write("\n".join(rows) + "\n")
+    return avss
 
 
 def main() -> None:
@@ -145,12 +187,18 @@ def main() -> None:
     ap.add_argument("--s4-val", type=int, default=48)
     ap.add_argument("--ms3-train", type=int, default=0)
     ap.add_argument("--ms3-val", type=int, default=0)
+    ap.add_argument("--ms3-test", type=int, default=0)
+    ap.add_argument("--avss-train", type=int, default=0)
+    ap.add_argument("--avss-val", type=int, default=0)
+    ap.add_argument("--avss-test", type=int, default=0)
     ap.add_argument("--size", type=int, default=FRAME)
     args = ap.parse_args()
     if args.s4_train or args.s4_val:
         print(make_s4(args.root, args.s4_train, args.s4_val, args.size))
-    if args.ms3_train or args.ms3_val:
-        print(make_ms3(args.root, args.ms3_train, args.ms3_val, args.size))
+    if args.ms3_train or args.ms3_val or args.ms3_test:
+        print(make_ms3(args.root, args.ms3_train, args.ms3_val, args.size, args.ms3_test))
+    if args.avss_train or args.avss_val or args.avss_test:
+        print(make_avss(args.root, args.avss_train, args.avss_val, args.avss_test, args.size))
 
 
 if __name__ == "__main__":

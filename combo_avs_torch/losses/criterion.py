@@ -214,9 +214,11 @@ class SetCriterion:
         if len(draws) != len(layers):
             raise ValueError(f"{len(draws)} draws for {len(layers)} layers")
 
+        assigns = self.matcher.match_layers(
+            [(pts, logits, masks, labels, tgt_masks, valid)
+             for (logits, masks, _), (pts, _, _) in zip(layers, draws)])
         losses: Dict[str, torch.Tensor] = {}
-        for (logits, masks, suffix), (pts, candidates, tail) in zip(layers, draws):
-            assign = self.matcher(pts, logits, masks, labels, tgt_masks, valid)
+        for (logits, masks, suffix), (_, candidates, tail), assign in zip(layers, draws, assigns):
             losses[f"loss_ce{suffix}"] = self._loss_labels(logits, labels, valid, assign,
                                                            frame_weight)
             lm, ld = self._loss_masks(masks, tgt_masks, valid, assign, num_masks,

@@ -84,9 +84,21 @@ class HungarianMatcher:
     def __call__(self, points, pred_logits, pred_masks, tgt_labels, tgt_masks, tgt_valid):
         """Returns the assignment [N, K] int64: the query matched to each
         target slot, -1 for an invalid slot."""
-        cost = self.cost_matrix(points, pred_logits, pred_masks, tgt_labels, tgt_masks,
-                                tgt_valid)
-        cost = torch.nan_to_num(cost, nan=BIG_COST, posinf=BIG_COST, neginf=-BIG_COST)
+        return self.match_layers([(points, pred_logits, pred_masks, tgt_labels, tgt_masks,
+                                   tgt_valid)])[0]
+
+    @torch.no_grad()
+    def match_layers(self, layers):
+        """`__call__` for several decoder outputs at once: `layers` holds one
+        argument tuple of `__call__` each, and the list of their assignments
+        comes back. Every output's cost matrices go to the solver in one
+        batch (the Jonker-Volgenant solver's fixed trip count then runs once
+        a step, not once an output); each matrix is solved on its own, so
+        the assignments are those of separate calls."""
+        costs = [torch.nan_to_num(self.cost_matrix(*args), nan=BIG_COST, posinf=BIG_COST,
+                                  neginf=-BIG_COST) for args in layers]
         # rows = target slots, columns = queries (K <= Q)
-        assign = solve_lsap_batch(cost.transpose(1, 2))
-        return torch.where(tgt_valid, assign, torch.full_like(assign, -1))
+        assign = solve_lsap_batch(torch.cat(costs).transpose(1, 2))
+        valid = [args[5] for args in layers]
+        return [torch.where(ok, a, torch.full_like(a, -1))
+                for ok, a in zip(valid, assign.split([c.shape[0] for c in costs]))]

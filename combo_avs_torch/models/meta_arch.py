@@ -140,7 +140,10 @@ def semantic_inference(
     upsampled and weighted per frame by `temporal_mask`; returns [N, C, H, W]
     float32. On a CUDA tensor with at most `seminf_cuda.MAX_C` classes and an
     upsampling `out_size` the fused kernel computes it; otherwise, and always
-    on the CPU, the plain composition (`seminf_cuda.semantic_inference_plain`)."""
+    on the CPU, the plain composition (`seminf_cuda.semantic_inference_plain`).
+    AVSS's 71 classes take the plain composition on the card too, as the
+    JAX package leaves C > 8 to XLA's matmul (combo_avs_tpu/ops/
+    seminf_pallas.py:40,53,97): no kernel computes them there either."""
     cls = _upcast32(mask_cls).softmax(-1)[..., :-1]
     if mask_pred.is_cuda and seminf_cuda.kernel_takes(cls.shape[-1], mask_pred.shape[2:],
                                                       out_size):

@@ -19,10 +19,10 @@ the forward, its SM count), made once per shape, and the C functions only
 execute them.
 
 `launches` and `bwd_launches` count the two kernels' launches in this
-process, and `fwd_plan_launches` and `bwd_plan_launches` each kernel's by
-plan: each is incremented where its kernel is launched and nowhere else, so
-a caller can reset them, run the model, and see that the path went through
-the kernels.
+process, `fwd_plan_launches` and `bwd_plan_launches` each kernel's by
+plan, and `bwd_dtype_launches` the backward's by value type: each is
+incremented where its kernel is launched and nowhere else, so a caller can
+reset them, run the model, and see that the path went through the kernels.
 """
 
 from __future__ import annotations
@@ -44,6 +44,7 @@ launches = 0
 bwd_launches = 0
 fwd_plan_launches = {"staged": 0, "global": 0}
 bwd_plan_launches = {"level_slice": 0, "global": 0}
+bwd_dtype_launches = {"float32": 0, "bfloat16": 0}
 
 # the forward's launch plans (csrc/ms_deform_attn_fwd.cu executes them)
 FWD_KERNELS = ("global", "staged")  # the C function's kernel codes 0, 1
@@ -203,20 +204,23 @@ class BwdLaunchPlan(NamedTuple):
     smem_bytes: int
 
 
-def level_slice_bytes(rows: int, D: int, P: int, threads: int = LEVEL_SLICE_THREADS) -> int:
+def level_slice_bytes(rows: int, D: int, P: int, threads: int = LEVEL_SLICE_THREADS,
+                      esize: int = 4) -> int:
     """The level-slice kernel's shared memory for a largest level of `rows`
-    positions: its value and dvalue rows ([rows, D] float32 each) and each
+    positions: its value rows ([rows, D] of `esize` bytes, 4 fp32 or 2 bf16,
+    rounded up to 16 bytes), its dvalue rows ([rows, D] float32) and each
     warp's grad rows (32 // P queries of D floats)."""
-    return (2 * rows + threads // 32 * (32 // P)) * D * 4
+    return -(-rows * D * esize // 16) * 16 + (rows + threads // 32 * (32 // P)) * D * 4
 
 
 def bwd_launch_plan(levels: Sequence[Tuple[int, int]], Lq: int, M: int, D: int, P: int,
-                    smem_optin: int) -> BwdLaunchPlan:
+                    smem_optin: int, esize: int = 4) -> BwdLaunchPlan:
     """The backward's launch plan, a pure function of the level shapes, the
-    query count, heads, channels, points per level and the card's opt-in
-    shared-memory limit per block: "level_slice" when its shared memory for
-    the largest level fits that limit, else "global"."""
-    smem = level_slice_bytes(max(h * w for h, w in levels), D, P)
+    query count, heads, channels, points per level, the card's opt-in
+    shared-memory limit per block and value's element size (4 fp32, 2
+    bf16): "level_slice" when its shared memory for the largest level fits
+    that limit, else "global"."""
+    smem = level_slice_bytes(max(h * w for h, w in levels), D, P, esize=esize)
     if smem <= smem_optin:
         return BwdLaunchPlan("level_slice", LEVEL_SLICE_THREADS, M * len(levels), smem)
     warps = GLOBAL_THREADS // 32
@@ -224,21 +228,21 @@ def bwd_launch_plan(levels: Sequence[Tuple[int, int]], Lq: int, M: int, D: int, 
 
 
 def plan_args(B: int, S: int, Lq: int, M: int, D: int, P: int,
-              levels: Sequence[Tuple[int, int]], plan: BwdLaunchPlan):
-    """The C function's int array: B, S, Lq, M, D, L, P, the plan's kernel
-    (0 global, 1 level_slice), threads, blocks per frame and shared-memory
-    bytes, then (H_l, W_l) per level."""
-    return (ctypes.c_int * (11 + 2 * len(levels)))(
-        B, S, Lq, M, D, len(levels), P, int(plan.kernel == "level_slice"), plan.threads,
-        plan.blocks_per_frame, plan.smem_bytes, *[n for hw in levels for n in hw])
+              levels: Sequence[Tuple[int, int]], plan: BwdLaunchPlan, esize: int = 4):
+    """The C function's int array: B, S, Lq, M, D, L, P, dtype (0 fp32, 1
+    bf16), the plan's kernel (0 global, 1 level_slice), threads, blocks per
+    frame and shared-memory bytes, then (H_l, W_l) per level."""
+    return (ctypes.c_int * (12 + 2 * len(levels)))(
+        B, S, Lq, M, D, len(levels), P, int(esize == 2), int(plan.kernel == "level_slice"),
+        plan.threads, plan.blocks_per_frame, plan.smem_bytes, *[n for hw in levels for n in hw])
 
 
 @functools.lru_cache(maxsize=1024)
-def _chosen_plan(B: int, S: int, Lq: int, M: int, D: int, P: int,
+def _chosen_plan(B: int, S: int, Lq: int, M: int, D: int, P: int, esize: int,
                  levels: Tuple[Tuple[int, int], ...], optin: int):
     """bwd_launch_plan's choice and its int array, made once per shape."""
-    plan = bwd_launch_plan(levels, Lq, M, D, P, optin)
-    return plan, plan_args(B, S, Lq, M, D, P, levels, plan)
+    plan = bwd_launch_plan(levels, Lq, M, D, P, optin, esize)
+    return plan, plan_args(B, S, Lq, M, D, P, levels, plan, esize)
 
 
 def _check(value, spatial_shapes, sampling_locations, attention_weights, name):
@@ -319,16 +323,14 @@ def ms_deform_attn_cuda(
 def ms_deform_attn_bwd_cuda(value, spatial_shapes, sampling_locations, attention_weights,
                             grad_out, plan: Optional[BwdLaunchPlan] = None):
     """Launch K2: the gradients (dvalue, dlocations, dweights) of K1's output
-    against `grad_out` [B, Lq, M * D], in the inputs' dtypes. fp32 value only
-    (the bf16 training regime, AMP, is not ported yet). `plan` is
+    against `grad_out` [B, Lq, M * D], in the inputs' dtypes. A float32 or
+    bfloat16 value (the bf16 AMP training step); `grad_out` is read in the
+    value's type, and the kernel sums in fp32 whatever the type. `plan` is
     `bwd_launch_plan`'s choice unless the caller names another (to check or
     time it); a launch that fails raises, whatever the plan."""
     global bwd_launches
     shapes = _check(value, spatial_shapes, sampling_locations, attention_weights,
                     "ms_deform_attn_bwd_cuda")
-    if value.dtype != torch.float32:
-        raise TypeError("ms_deform_attn_bwd_cuda: the backward takes a float32 value only, "
-                        f"got {value.dtype}")
     B, S, M, D = value.shape
     _, Lq, _, L, P, _ = sampling_locations.shape
     if tuple(grad_out.shape) != (B, Lq, M * D) or grad_out.device != value.device:
@@ -336,18 +338,22 @@ def ms_deform_attn_bwd_cuda(value, spatial_shapes, sampling_locations, attention
                          f"{grad_out.device}, expected {(B, Lq, M * D)} on {value.device}")
     loc = sampling_locations.detach().to(torch.float32).contiguous()
     attw = attention_weights.detach().to(torch.float32).contiguous()
-    g = grad_out.detach().to(torch.float32).contiguous()
+    g = grad_out.detach().to(value.dtype).contiguous()
     dloc = torch.empty_like(loc)
     dattw = torch.empty_like(attw)
     if g.numel() and value.numel():
+        esize = value.element_size()
         if plan is None:
-            plan, args = _chosen_plan(B, S, Lq, M, D, P, tuple(shapes),
+            plan, args = _chosen_plan(B, S, Lq, M, D, P, esize, tuple(shapes),
                                       smem_optin(value.device.index))
         else:
-            args = plan_args(B, S, Lq, M, D, P, shapes, plan)
-        # the level-slice kernel writes every element; the global one adds
-        dvalue = (torch.empty_like if plan.kernel == "level_slice" else torch.zeros_like)(
-            value, dtype=torch.float32)
+            args = plan_args(B, S, Lq, M, D, P, shapes, plan, esize)
+        # the level-slice kernel writes every element in the value's type; the
+        # global one adds into a zeroed fp32 buffer, cast below
+        if plan.kernel == "level_slice":
+            dvalue = torch.empty_like(value)
+        else:
+            dvalue = torch.zeros_like(value, dtype=torch.float32)
         stream = torch.cuda.current_stream(value.device).cuda_stream
         err = _bwd_kernel()(value.data_ptr(), loc.data_ptr(), attw.data_ptr(), g.data_ptr(),
                             dvalue.data_ptr(), dloc.data_ptr(), dattw.data_ptr(), args, stream)
@@ -356,8 +362,10 @@ def ms_deform_attn_bwd_cuda(value, spatial_shapes, sampling_locations, attention
                                f"CUDA error {err}")
         bwd_launches += 1
         bwd_plan_launches[plan.kernel] += 1
+        bwd_dtype_launches[str(value.dtype).removeprefix("torch.")] += 1
+        dvalue = dvalue.to(value.dtype)
     else:
-        dvalue = torch.zeros_like(value, dtype=torch.float32)
+        dvalue = torch.zeros_like(value)
         dloc.zero_()
         dattw.zero_()
     return (dvalue, dloc.to(sampling_locations.dtype),
@@ -386,8 +394,4 @@ def ms_deform_attn(value, spatial_shapes, sampling_locations, attention_weights)
     plain version for a CPU one."""
     if not value.is_cuda:
         return ms_deform_attn_plain(value, spatial_shapes, sampling_locations, attention_weights)
-    if (value.dtype != torch.float32 and torch.is_grad_enabled()
-            and any(t.requires_grad for t in (value, sampling_locations, attention_weights))):
-        raise TypeError("ms_deform_attn: gradients on the card take a float32 value only "
-                        f"(got {value.dtype}); the bf16 training regime is not ported yet")
     return MSDeformAttnFunction.apply(value, spatial_shapes, sampling_locations, attention_weights)

@@ -1,5 +1,6 @@
-"""The S4 evaluation loop: dataset records in, the reference's mIoU and
-F-score out.
+"""The evaluation loop: dataset records in, the reference's mIoU and
+F-score out (S4 and MS3; AVSS's per-class means and their no-background
+variants).
 
 Port of the device half of `combo_avs_tpu/train/trainer.py::evaluate`
 (ref: models/evaluation/evaluator.py:106-255 inference_on_dataset): the
@@ -9,7 +10,10 @@ to the card, copied from pinned host memory without blocking; the reference's
 three timers (data, compute, eval) and its log lines; the per-video
 postprocess and metrics inline or, with `COMBO_EVAL_PROCS=N`, on N worker
 processes whose partial evaluators are merged; and the results written to
-`<output_dir>/inference/<dataset>/sem_seg_evaluation.pth`. A batch that
+`<output_dir>/inference/<dataset>/sem_seg_evaluation.pth`. The split's
+`evaluator_type` picks the evaluator and the mapper's labels: "sem_seg"
+(S4, MS3: binary GT, `SemSegEvaluator`) or "sem_seg_ss" (AVSS: index labels,
+`SemSegEvaluatorSS`). A batch that
 runs the card out of memory is computed again one video at a time
 (`run_step`); `eval_settings` reads the size and precision from a config.
 
@@ -36,8 +40,9 @@ import torch
 
 from combo_avs_torch.data.catalogs import DatasetCatalog, MetadataCatalog
 from combo_avs_torch.data.loader import eval_loader
-from combo_avs_torch.data.mappers import AVSSemanticDatasetMapper
-from combo_avs_torch.evaluation.evaluator import SemSegEvaluator, eval_video_partial
+from combo_avs_torch.data.mappers import AVSS_MAX_INSTANCES, AVSSemanticDatasetMapper
+from combo_avs_torch.evaluation.evaluator import (SemSegEvaluator, SemSegEvaluatorSS,
+                                                  eval_video_partial, eval_video_partial_ss)
 from combo_avs_torch.evaluation.postprocess import crop_and_resize_gt, sem_seg_postprocess
 from combo_avs_torch.train.train_step import make_eval_step
 
@@ -67,7 +72,7 @@ class MetricPool:
     def submit(self, fn, *args) -> None:
         self._pending.append(self._pool.apply_async(fn, args))
 
-    def drain(self, evaluator: SemSegEvaluator, keep: int = 0) -> None:
+    def drain(self, evaluator, keep: int = 0) -> None:
         """Merge finished results, oldest first, until `keep` are in flight."""
         while len(self._pending) > keep:
             res = self._pending.popleft()
@@ -118,24 +123,39 @@ def run_step(step: Callable[[Dict], torch.Tensor], inputs: Dict[str, torch.Tenso
                                for b in range(B)])
 
 
+def default_evaluator(dataset_name: str):
+    """A fresh evaluator of the split's `evaluator_type`: S4/MS3's, or
+    AVSS's over the split's classes."""
+    meta = MetadataCatalog[dataset_name]
+    etype = meta.get("evaluator_type")
+    if etype == "sem_seg":
+        return SemSegEvaluator()
+    if etype == "sem_seg_ss":
+        return SemSegEvaluatorSS(num_classes=len(meta["stuff_classes"]))
+    raise NotImplementedError(f"{dataset_name}: no evaluator of type {etype!r}")
+
+
 def evaluate(model: torch.nn.Module, dataset_name: str, batch_size: int = 1,
              max_videos: Optional[int] = None, bf16: bool = False, size: int = 224,
              output_dir: str = "", mapper: Optional[Callable[[Dict], Dict]] = None,
-             evaluator: Optional[SemSegEvaluator] = None) -> Tuple[Dict, Dict]:
+             evaluator=None) -> Tuple[Dict, Dict]:
     """Evaluate `model` (on its own device) over the registered dataset.
-    Returns ({"sem_seg": {"mIoU", "f_score"}}, timing), timing holding the
-    wall, data, compute and eval seconds and the counts of real videos and
-    frames. `size` is INPUT.SIZE_DIVISIBILITY, the padded frame size;
-    `mapper` defaults to the S4 eval mapper at that size, `evaluator` to a
-    fresh S4/MS3 one."""
-    if MetadataCatalog[dataset_name].get("evaluator_type") != "sem_seg":
-        raise NotImplementedError(f"{dataset_name}: only the S4/MS3 evaluator is ported")
+    Returns ({"sem_seg": metrics}, timing): metrics "mIoU" and "f_score"
+    (AVSS adds "mIoU_noBg" and "f_score_noBg"), timing the wall, data,
+    compute and eval seconds and the counts of real videos and frames.
+    `size` is INPUT.SIZE_DIVISIBILITY, the padded frame size; `mapper`
+    defaults to the split's eval mapper at that size (binary or index
+    labels), `evaluator` to a fresh one of the split's type
+    (`default_evaluator`)."""
+    evaluator = evaluator if evaluator is not None else default_evaluator(dataset_name)
     records = DatasetCatalog[dataset_name]()
     if max_videos:
         records = records[:max_videos]
+    semantic = isinstance(evaluator, SemSegEvaluatorSS)
     if mapper is None:
-        mapper = AVSSemanticDatasetMapper(size_divisibility=size)
-    evaluator = evaluator if evaluator is not None else SemSegEvaluator()
+        mapper = (AVSSemanticDatasetMapper(size_divisibility=size, binary_gt=False,
+                                           max_instances=AVSS_MAX_INSTANCES) if semantic
+                  else AVSSemanticDatasetMapper(size_divisibility=size))
     step = make_eval_step(model, out_size=(size, size), bf16=bf16)
     device = next(model.parameters()).device
     n_devices = torch.cuda.device_count() if device.type == "cuda" else 1
@@ -177,7 +197,12 @@ def evaluate(model: torch.nn.Module, dataset_name: str, batch_size: int = 1,
                 hw = (int(batch["image_size"][b][0]), int(batch["image_size"][b][1]))
                 oh, ow = int(batch["height"][b]), int(batch["width"][b])
                 if pool is not None:
-                    pool.submit(eval_video_partial, sem[b], batch["sem_segs"][b], hw, oh, ow)
+                    if semantic:
+                        pool.submit(eval_video_partial_ss, evaluator.num_classes, sem[b],
+                                    batch["sem_segs"][b], hw, oh, ow)
+                    else:
+                        pool.submit(eval_video_partial, sem[b], batch["sem_segs"][b], hw, oh,
+                                    ow)
                     pool.drain(evaluator, keep=4 * eval_procs)
                     continue
                 evaluator.process(sem_seg_postprocess(sem[b], hw, oh, ow),

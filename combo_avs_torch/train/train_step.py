@@ -1,8 +1,9 @@
 """The train and eval steps.
 
 Port of `combo_avs_tpu/train/train_step.py` (`make_train_step`,
-`make_eval_step`, `_flatten_targets`, `_model_inputs`). PyTorch runs eagerly,
-so there is no jit: the train step is forward, criterion, backward and
+`make_eval_step`, `_flatten_targets`, `_model_inputs`; `_cast_tree` and
+the AMP step's output cast as `amp_forward`). PyTorch runs eagerly, so
+there is no jit: the train step is forward, criterion, backward and
 optimizer update in one call; the eval step runs under
 `torch.inference_mode()`. Each step sets the model's mode for its call and
 restores the mode it found.
@@ -15,6 +16,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.func import functional_call
 
 from combo_avs_torch.losses.criterion import Draws, SetCriterion, total_loss
 from combo_avs_torch.models.meta_arch import semantic_inference
@@ -51,18 +53,50 @@ def _flatten_targets(batch: Dict, device: torch.device) -> Dict[str, torch.Tenso
     }
 
 
+def _to_float32(tree):
+    """The model's outputs with every bf16 tensor cast to float32."""
+    if isinstance(tree, dict):
+        return {k: _to_float32(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_float32(v) for v in tree)
+    if isinstance(tree, torch.Tensor) and tree.dtype == torch.bfloat16:
+        return tree.float()
+    return tree
+
+
+def amp_forward(model: torch.nn.Module, inputs, generator: torch.Generator):
+    """The AMP forward (combo_avs_tpu/train/train_step.py:98-124): every
+    float32 parameter and buffer cast to bfloat16 (`_cast_tree`) and the
+    model run on those copies, its outputs cast back to float32. The casts
+    are differentiable, so gradients land on the float32 parameters. The
+    whole network runs in bf16, as the JAX step's does; `torch.autocast`
+    would keep LayerNorm, softmax and reductions in fp32 and so compute
+    another function."""
+    tensors = {name: t.to(torch.bfloat16) if t.dtype == torch.float32 else t
+               for name, t in (*model.named_parameters(), *model.named_buffers())}
+    outputs = functional_call(model, tensors, tuple(inputs),
+                              {"dropout_generator": generator})
+    return _to_float32(outputs)
+
+
 def compute_losses(model: torch.nn.Module, criterion: SetCriterion, batch: Dict,
-                   generator: torch.Generator,
-                   draws: Optional[Sequence[Draws]] = None) -> Dict[str, torch.Tensor]:
+                   generator: torch.Generator, draws: Optional[Sequence[Draws]] = None,
+                   amp: bool = False) -> Dict[str, torch.Tensor]:
     """The training forward: model outputs on the batch, then every named
     loss. `gt_temporal_mask` [B, T] becomes the per-frame weight (S4: the
     first frame of each video); `vid_temporal_mask` [B, T], when the batch
     has one, gates each frame's audio feature. Dropout (in training mode) and the
     criterion's draws come from `generator`, in that order, unless `draws`
-    are given. The model's mode is the caller's."""
+    are given. With `amp` the forward runs in bfloat16 (`amp_forward`) on
+    inputs cast to bfloat16 on the device, and the losses in float32. The
+    model's mode is the caller's."""
     param = next(model.parameters())
-    outputs = model(*_model_inputs(batch, param.dtype, param.device),
-                    dropout_generator=generator)
+    if amp:
+        outputs = amp_forward(model, _model_inputs(batch, torch.bfloat16, param.device),
+                              generator)
+    else:
+        outputs = model(*_model_inputs(batch, param.dtype, param.device),
+                        dropout_generator=generator)
     targets = _flatten_targets(batch, param.device)
     fw = batch.get("gt_temporal_mask")
     fw = None if fw is None else _to(fw, param.device, torch.float32).reshape(-1)
@@ -80,16 +114,16 @@ def make_train_step(model: torch.nn.Module, criterion: SetCriterion,
     `gt_temporal_mask` [B, T], optionally `vid_temporal_mask` [B, T]). The metrics are `total_loss` and every named
     loss, as 0-dim tensors on the model's device (reading them synchronizes).
     `generator` (on the model's device) drives dropout and the criterion's
-    draws. amp=True, the AVSS bf16 regime, is not ported yet."""
-    if amp:
-        raise NotImplementedError("make_train_step: amp=True (the AVSS bf16 regime) is not "
-                                  "ported yet")
+    draws. amp=True is the AVSS regime (SOLVER.AMP.ENABLED): the forward in
+    bfloat16 on bf16 copies of the float32 weights (`amp_forward`); the
+    losses, the gradients on the float32 weights, the clip and AdamW in
+    float32. bf16 needs no loss scaling (float32's exponent range)."""
 
     def train_step(batch: Dict) -> Dict[str, torch.Tensor]:
         was_training = model.training
         model.train()
         try:
-            losses = compute_losses(model, criterion, batch, generator)
+            losses = compute_losses(model, criterion, batch, generator, amp=amp)
             loss = total_loss(losses, weight_dict)
             optimizer.zero_grad()
             loss.backward()

@@ -33,8 +33,9 @@ import torch
 
 from combo_avs_torch.data.catalogs import DatasetCatalog, MetadataCatalog
 from combo_avs_torch.data.loader import TrainLoader
-from combo_avs_torch.data.mappers import AVSSemanticDatasetMapper
-from combo_avs_torch.evaluation.evaluator import SemSegEvaluator
+from combo_avs_torch.data.mappers import (AVSS_MAX_INSTANCES, MAX_INSTANCES,
+                                          AVSSemanticDatasetMapper)
+from combo_avs_torch.evaluation.evaluator import SemSegEvaluator, SemSegEvaluatorSS
 from combo_avs_torch.losses.criterion import build_criterion, build_weight_dict
 from combo_avs_torch.models.layers import init_weights
 from combo_avs_torch.models.meta_arch import build_model
@@ -48,32 +49,35 @@ from combo_avs_torch.utils.events import EventStorage, JSONWriter, TensorBoardWr
 logger = logging.getLogger("COMBO")
 
 BINARY_MAPPERS = ("avss4_semantic", "avsms3_semantic")
-MAX_INSTANCES = 3  # target slots of the binary benchmarks (trainer.py:56)
+MAPPERS = (*BINARY_MAPPERS, "avss_semantic")
 
 
 def build_mapper(cfg, is_train: bool, seed: int = 0) -> AVSSemanticDatasetMapper:
-    """The dataset mapper a config describes (trainer.py:52-71). S4 and MS3
-    only: the AVSS mapper (index labels, no geometric augmentation) is not
-    ported yet and raises."""
+    """The dataset mapper a config describes (trainer.py:52-71): S4 and MS3
+    with binary GT and 3 target slots; AVSS with index labels, 12 slots and
+    no geometric augmentation (its frames come resized)."""
     name = cfg.INPUT.DATASET_MAPPER_NAME
-    if name not in BINARY_MAPPERS:
-        raise NotImplementedError(f"INPUT.DATASET_MAPPER_NAME = {name!r} is not ported yet "
-                                  f"(the port has {BINARY_MAPPERS})")
+    if name not in MAPPERS:
+        raise NotImplementedError(f"INPUT.DATASET_MAPPER_NAME = {name!r} (the port has "
+                                  f"{MAPPERS})")
+    binary = name in BINARY_MAPPERS
     return AVSSemanticDatasetMapper(
         size_divisibility=cfg.INPUT.SIZE_DIVISIBILITY, is_train=is_train,
         augmentation=cfg.INPUT.AUGMENTATION, min_sizes=tuple(cfg.INPUT.MIN_SIZE_TRAIN),
         max_size=cfg.INPUT.MAX_SIZE_TRAIN,
         crop_size=tuple(cfg.INPUT.CROP.SIZE) if cfg.INPUT.CROP.ENABLED else None,
         color_aug=cfg.INPUT.COLOR_AUG_SSD, ignore_label=cfg.MODEL.SEM_SEG_HEAD.IGNORE_VALUE,
-        max_instances=MAX_INSTANCES, seed=seed % 2**32)
+        max_instances=MAX_INSTANCES if binary else AVSS_MAX_INSTANCES, binary_gt=binary,
+        geometric_aug=binary, seed=seed % 2**32)
 
 
-def build_evaluator(cfg, dataset_name: str) -> SemSegEvaluator:
-    """The benchmark's evaluator (trainer.py:74-78): the S4/MS3 one; AVSS's
-    is not ported yet and raises."""
+def build_evaluator(cfg, dataset_name: str):
+    """The benchmark's evaluator (trainer.py:74-78): AVSS's over
+    MODEL.SEM_SEG_HEAD.NUM_CLASSES classes for a "sem_seg_ss" split, else
+    S4/MS3's."""
     etype = MetadataCatalog.get(dataset_name, {}).get("evaluator_type", "sem_seg")
-    if etype != "sem_seg":
-        raise NotImplementedError(f"{dataset_name}: evaluator {etype!r} is not ported yet")
+    if etype == "sem_seg_ss":
+        return SemSegEvaluatorSS(num_classes=cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES)
     return SemSegEvaluator()
 
 

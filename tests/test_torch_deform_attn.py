@@ -188,22 +188,36 @@ BWD_PLANS = {
     "p3": ((MAIN_LEVELS, 1029, 8, 32, 3, H100_OPTIN), ("level_slice", 768, 24, 231424)),
     "no_optin": ((MAIN_LEVELS, 1029, 8, 32, 4, 48 * 1024), ("global", 256, 1029, 0)),
 }
+# bf16 (the AMP step): the staged value rows take 2 bytes an element, rounded
+# up to 16 bytes, the dvalue and grad rows stay fp32: 64 + 128 bytes a row at
+# D = 32 beside the 24 x 8 grad rows, so 1082 rows fit 232,448 bytes, 1083 do not
+BWD_PLANS_BF16 = {
+    "avss_bf16": ((MAIN_LEVELS, 1029, 8, 32, 4, H100_OPTIN), ("level_slice", 768, 24, 175104)),
+    "at_limit_bf16": ((((7, 7), (2, 541)), 1131, 8, 32, 4, H100_OPTIN),
+                      ("level_slice", 768, 16, 232320)),
+    "one_row_over_bf16": ((((7, 7), (3, 361)), 1132, 8, 32, 4, H100_OPTIN),
+                          ("global", 256, 1132, 0)),
+    "ragged_bf16": ((((3, 5), (6, 10)), 37, 3, 16, 4, H100_OPTIN),
+                    ("level_slice", 768, 6, 18048)),
+}
 
 
-@pytest.mark.parametrize("case", sorted(BWD_PLANS))
+@pytest.mark.parametrize("case", sorted(BWD_PLANS) + sorted(BWD_PLANS_BF16))
 def test_bwd_launch_plan(case):
-    """K2's launch plan is a pure function of the shapes and the card's
-    opt-in limit: the level-slice kernel exactly when its shared memory for
-    the largest level (value and dvalue rows, each warp's grad rows) fits
-    it, else the global one; and the C function's int array carries the
-    plan and the level shapes."""
-    (levels, lq, m, d, p, optin), want = BWD_PLANS[case]
-    plan = deform_attn_cuda.bwd_launch_plan(levels, lq, m, d, p, optin)
+    """K2's launch plan is a pure function of the shapes, the value's element
+    size and the card's opt-in limit: the level-slice kernel exactly when its
+    shared memory for the largest level (value and dvalue rows, each warp's
+    grad rows) fits it, else the global one; and the C function's int array
+    carries the value type, the plan and the level shapes."""
+    esize = 2 if case in BWD_PLANS_BF16 else 4
+    (levels, lq, m, d, p, optin), want = {**BWD_PLANS, **BWD_PLANS_BF16}[case]
+    plan = deform_attn_cuda.bwd_launch_plan(levels, lq, m, d, p, optin, esize)
     assert tuple(plan) == want
     s = sum(h * w for h, w in levels)
-    args = deform_attn_cuda.plan_args(3, s, lq, m, d, p, levels, plan)
-    assert list(args) == [3, s, lq, m, d, len(levels), p, int(want[0] == "level_slice"),
-                          *want[1:], *[n for hw in levels for n in hw]]
+    args = deform_attn_cuda.plan_args(3, s, lq, m, d, p, levels, plan, esize)
+    assert list(args) == [3, s, lq, m, d, len(levels), p, int(esize == 2),
+                          int(want[0] == "level_slice"), *want[1:],
+                          *[n for hw in levels for n in hw]]
 
 
 H100_SMS = 132  # an H100 SXM's streaming multiprocessors

@@ -101,6 +101,6 @@ def test_k1_refuses_what_it_does_not_take(cuda_device):
         deform_attn_cuda.ms_deform_attn_cuda(value, ((3, 5), (6, 9)), loc, w)
     with pytest.raises(ValueError, match="contiguous"):
         deform_attn_cuda.ms_deform_attn_cuda(value[..., ::2], RAGGED["levels"], loc, w)
-    # gradients on the card take a float32 value only (K2 has no bf16 form yet)
-    with pytest.raises(TypeError, match="float32"):
-        deform_attn_cuda.ms_deform_attn(value.bfloat16().requires_grad_(), RAGGED["levels"], loc, w)
+    # the autograd Function takes what both kernels take (K2 reads fp32 and bf16 too)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        deform_attn_cuda.ms_deform_attn(value.half().requires_grad_(), RAGGED["levels"], loc, w)

@@ -1,6 +1,6 @@
 """The hand-written CUDA kernels of the training slice against their plain
 PyTorch versions, on a CUDA card: K2 (the deformable-attention backward,
-through `MSDeformAttnFunction`), K3/K5 (the point-sample forward) and K4 (its
+through `MSDeformAttnFunction`, in fp32 and in the AMP step's bf16), K3/K5 (the point-sample forward) and K4 (its
 image and point gradients, through `PointSampleFunction`). The kernels have
 no CPU mode, so without a card every test here skips.
 
@@ -16,7 +16,7 @@ from unittest import mock
 import pytest
 import torch
 
-from chip_smoke import TOL_FP32, k1_inputs, misaligned, point_inputs
+from chip_smoke import K2_TOL_BF16, TOL_FP32, k1_inputs, misaligned, point_inputs
 from combo_avs_torch.ops import deform_attn_cuda, point_sample_cuda
 from combo_avs_torch.ops.deform_attn import ms_deform_attn_plain
 from combo_avs_torch.ops.grid_sample import point_sample, point_sample_plain
@@ -71,8 +71,8 @@ def cuda_device():
 def _close(got, want, tol=TOL_FP32):
     torch.cuda.synchronize()
     assert got.shape == want.shape and got.dtype == want.dtype
-    err = (got - want).abs().max().item()
-    assert err <= tol * want.abs().max().item(), err
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol * want.float().abs().max().item(), err
 
 
 def _plain_grads(fn, inputs, g):
@@ -111,13 +111,40 @@ def test_k2_matches_plain_autograd(cuda_device, case, plan):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("plan", ["level_slice", "global"])
+@pytest.mark.parametrize("case", sorted(DEFORM))
+def test_k2_bf16_matches_plain_autograd(cuda_device, case, plan):
+    """The bf16 AMP step's K2: a bf16 value, gradient, locations and weights
+    through the autograd Function under each launch plan, against the plain
+    version's fp32 autograd on the same bf16-rounded inputs, each gradient
+    rounded to bf16 (one bf16 ulp apart at most: K2_TOL_BF16 of max |plain|);
+    the gradients come back in bf16, as the inputs are."""
+    c = DEFORM[case]
+    value, loc, w = (t.bfloat16() for t in k1_inputs(
+        c["b"], c["m"], c["d"], 4, c["levels"], c["lq"], torch.float32, cuda_device, seed=7))
+    g = torch.randn((c["b"], c["lq"], c["m"] * c["d"]), device=cuda_device).bfloat16()
+    before = dict(deform_attn_cuda.bwd_dtype_launches)
+    leaves = [t.clone().requires_grad_() for t in (value, loc, w)]
+    optin = (contextlib.nullcontext() if plan == "level_slice"
+             else mock.patch.object(deform_attn_cuda, "smem_optin", lambda index: 0))
+    with optin:
+        out = deform_attn_cuda.ms_deform_attn(leaves[0], c["levels"], leaves[1], leaves[2])
+        got = torch.autograd.grad(out, leaves, g)
+    assert deform_attn_cuda.bwd_dtype_launches == dict(before, bfloat16=before["bfloat16"] + 1)
+    want = _plain_grads(lambda v, l, a: ms_deform_attn_plain(v, c["levels"], l, a),
+                        (value.float(), loc.float(), w.float()), g.float())
+    for a, b in zip(got, want):
+        _close(a, b.bfloat16(), tol=K2_TOL_BF16)
+
+
+@pytest.mark.gpu
 def test_k2_refuses_what_it_does_not_take(cuda_device):
     c = DEFORM["ragged"]
     value, loc, w = k1_inputs(1, c["m"], c["d"], 4, c["levels"], 5, torch.float32, cuda_device,
                               seed=6)
     g = torch.ones((1, 5, c["m"] * c["d"]), device=cuda_device)
-    with pytest.raises(TypeError, match="float32"):
-        deform_attn_cuda.ms_deform_attn_bwd_cuda(value.bfloat16(), c["levels"], loc, w, g)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        deform_attn_cuda.ms_deform_attn_bwd_cuda(value.half(), c["levels"], loc, w, g)
     with pytest.raises(ValueError, match="grad_out"):
         deform_attn_cuda.ms_deform_attn_bwd_cuda(value, c["levels"], loc, w, g[:, :4])
     with pytest.raises(ValueError, match="CUDA"):

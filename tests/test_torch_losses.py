@@ -77,8 +77,19 @@ def test_lsap_optimal_and_matches_jax(R):
 
 
 def test_lsap_refuses_more_than_five_rows():
-    with pytest.raises(NotImplementedError, match="Jonker-Volgenant"):
-        solve_lsap_batch(torch.zeros(1, 6, 10))
+    """The closed form refuses more than five rows: above them (AVSS's 12
+    slots would be 12^12 tuples) the dispatch hands the batch to the
+    Jonker-Volgenant solver, as the JAX package's `solve_lsap_batch` does;
+    and more rows than columns raise."""
+    from unittest import mock
+
+    from combo_avs_torch.ops import lsap
+
+    with mock.patch.object(lsap, "solve_lsap_small", side_effect=AssertionError("closed form")):
+        got = solve_lsap_batch(torch.zeros(1, 6, 10))
+    assert sorted(got[0].tolist()) == list(range(6))  # every column costs 0: distinct ones
+    with pytest.raises(ValueError, match="R <= C"):
+        solve_lsap_batch(torch.zeros(1, 6, 5))
 
 
 # ---------------------------------------------------------------- matcher + criterion

@@ -3,7 +3,8 @@
 the evaluation entry point end to end on a tiny model, and `train_net` on an
 MS3 COMBO-PVTv2-B5 config at cut depths, where every frame of a video is
 annotated and weighted. The trees are `data/synth.py::make_ms3`'s at 64^2.
-AVSS is not ported: its COMBO models build and its data path raises."""
+The AVSS COMBO models build here; the AVSS data path is held against the
+JAX package in tests/test_torch_avss.py."""
 
 import os
 
@@ -158,10 +159,10 @@ def test_train_net_ms3_weights_every_frame(tree, tmp_path, monkeypatch, name):
     seen = []
     real = train_step.compute_losses
 
-    def recording(model, criterion, batch, generator, draws=None):
+    def recording(model, criterion, batch, generator, draws=None, amp=False):
         seen.append({k: np.asarray(batch[k]) for k in ("gt_temporal_mask", "valid")})
-        assert model.training  # the PVT towers' drop path draws
-        return real(model, criterion, batch, generator, draws)
+        assert model.training and not amp  # the PVT towers' drop path draws; MS3 is fp32
+        return real(model, criterion, batch, generator, draws, amp=amp)
 
     monkeypatch.setattr(train_step, "compute_losses", recording)
     out = str(tmp_path / "out")
@@ -186,9 +187,16 @@ def test_train_net_ms3_weights_every_frame(tree, tmp_path, monkeypatch, name):
 
 @pytest.mark.parametrize("name", ["COMBO_R50_bs8_90k.yaml", "COMBO_PVTV2B5_bs8_90k.yaml"])
 def test_avss_model_builds_and_its_data_path_still_raises(name):
-    """AVSS stays where it was: the model of a shipped avs_ss COMBO config
-    builds, and its mapper (index labels, no geometric augmentation) raises."""
+    """The model of a shipped avs_ss COMBO config builds (71 classes and the
+    no-object one), and since AVSS was ported its data path no longer
+    raises: the mapper reads index labels into 12 slots with no geometric
+    augmentation (tests/test_torch_avss.py holds it against the JAX
+    mapper); a mapper name the port does not have still raises."""
     cfg = config.setup_cfg(os.path.join(CONFIGS, "avs_ss", name))
     assert build_model(cfg, device="meta").sem_seg_head.predictor.class_embed.out_features == 72
-    with pytest.raises(NotImplementedError, match="avss_semantic"):
-        build_mapper(cfg, is_train=True)
+    mapper = build_mapper(cfg, is_train=True)
+    assert (mapper.binary_gt, mapper.geometric_aug, mapper.max_instances) == (False, False, 12)
+    other = config.setup_cfg(os.path.join(CONFIGS, "avs_ss", name),
+                             ["INPUT.DATASET_MAPPER_NAME", "mask_former_semantic"])
+    with pytest.raises(NotImplementedError, match="mask_former_semantic"):
+        build_mapper(other, is_train=True)

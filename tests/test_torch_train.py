@@ -177,8 +177,10 @@ def test_train_step_updates_what_it_should():
     assert not changed & buffers  # FrozenBN statistics and affine, constants
     assert any(k.startswith("sem_seg_head.predictor.") for k in changed)
     assert any(k.startswith("backbone.") for k in changed)
-    with pytest.raises(NotImplementedError, match="amp"):
-        make_train_step(model, _criterion(), wd, Optimizer(model), torch.Generator(), amp=True)
+    # amp=True (the AVSS regime) builds a step; tests/test_torch_avss_train.py
+    # holds it against the JAX package's
+    assert callable(make_train_step(model, _criterion(), wd, Optimizer(model),
+                                    torch.Generator(), amp=True))
 
 
 def test_dropout_is_drawn_from_the_generator():
