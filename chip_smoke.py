@@ -1,6 +1,7 @@
 """Drive the PyTorch port's paths on one NVIDIA GPU and check them: COMBO-R50
-S4 inference, S4 training, and the S4 evaluation and training entry points;
-COMBO-R50 on AVSS (71 classes): the bf16 AMP training step and the AVSS
+S4 inference, S4 training, and the S4 evaluation and training entry points,
+the evaluation with test-time augmentation and prediction dumps; the JPEG
+codec; COMBO-R50 on AVSS (JPEG frames) (71 classes): the bf16 AMP training step and the AVSS
 training and evaluation entry points; then COMBO-PVTv2-B5 at full depth and
 width through the S4 steps, its training entry point, and the MS3
 evaluation entry point.
@@ -33,8 +34,14 @@ non-zero and never prints its last line:
        K7 the fused semantic inference under both launch plans (patch at
        integer ratios, the plan's choice, and pixel; fp32 and bf16 masks;
        also the time of F.interpolate alone), K6 the point gather (against
-       torch.gather);
+       torch.gather); K1 and K7 also at the TTA branches' shapes (bf16,
+       128^2 and 384^2 frames: K1's global plan and K7's pixel plan at 384^2
+       timed);
      then each kernel ranked against its library call by device ms;
+  3b. jpeg: the host JPEG codec built from `combo_avs_torch/native/jpeg.c`;
+     synthetic frames at 224^2 and 1280 x 720 encoded at quality 95 and
+     decoded at 4:2:0, 4:4:4 and gray, each round trip above its PSNR
+     floor, ms per frame of each;
   4. full-width COMBO-R50 S4 (`MaskFormer()` defaults) from a seeded init on
      the card, `make_eval_step` on 3 batches of 4 videos x 5 frames x 224^2 in
      fp32 and in bf16; K1 must be launched 6 times and K7 once per batch
@@ -46,6 +53,14 @@ non-zero and never prints its last line:
      inference on the card, whose metrics must agree, and once with the
      metrics on 2 forked worker processes (`COMBO_EVAL_PROCS=2`), whose
      metrics must be equal;
+  5b. tta: `pred --config-file avs_s4/Test_COMBO_R50_bs8_90k.yaml --save-vis
+     TEST.AUG.ENABLED True` over a synthetic S4 test split of 8 videos at
+     batch 4, bf16: metrics in [0, 1], K1 and K7 launches by plan each batch
+     as the plan functions give them at 128^2, 224^2 and 384^2 with flip,
+     one vis PNG per frame equal to the argmax of its prediction; then on
+     one batch TTA at [224] without flip against make_eval_step (bit for
+     bit), bf16 TTA against fp32 (held to 1.5 x the plain step's bf16
+     error), and the bf16 TTA step's wall and device time;
   6. `make_train_step` on the same model, 1 warm-up and 3 timed steps of
      8 videos x 5 frames x 224^2, K = 3 target slots, fp32, S4 frame weights:
      finite losses, the frozen tower and FrozenBN unchanged, the decoder
@@ -78,7 +93,8 @@ non-zero and never prints its last line:
      launches per step by plan, K2 all bf16); the AMP forward's losses
      against the fp32 one's on the same weights, batch, draws and matching
      (avss-amp-vs-fp32); `train_net` on that config over a synthetic AVSS
-     tree (3 train, 3 val, 5 test videos; v1s, v1m, v2), 2 iterations with
+     tree (3 train, 3 val, 5 test videos; v1s, v1m, v2; JPEG frames, as
+     AVSBench-semantic's), 2 iterations with
      an evaluation and a checkpoint (avss-entry); then `pred --config-file
      avs_ss/Test_COMBO_R50_bs8_90k.yaml` with its model_best.pth and no
      `--dataset` or `--bf16` over the 5 test videos, which must score
@@ -251,6 +267,29 @@ AVSS_TEST_CONFIG = os.path.join(CONFIG_DIR, "avs_ss", "Test_COMBO_R50_bs8_90k.ya
 # that of the 0.5 threshold; the metrics, rounded to 4 decimals, may move by
 # a few units of the last place
 EVAL_METRIC_ATOL = 1e-3
+
+# test-time augmentation through `pred --save-vis TEST.AUG.ENABLED True`: a
+# synthetic S4 test split at batch EVAL_BATCH, bf16 (TEST.BF16 auto), every
+# shipped config's TEST.AUG.MIN_SIZES (the default) with flip
+TTA_VIDEOS = 8
+TTA_CONFIG = os.path.join(CONFIG_DIR, "avs_s4", "Test_COMBO_R50_bs8_90k.yaml")
+TTA_SCALES = (128, 224, 384)
+# bf16 TTA against fp32 TTA on one batch: the full-width maps on random
+# weights sum 100 queries (their largest value about 20-50), and bf16 moves
+# them by 4-6% of that in the plain eval step and in each TTA branch alike
+# (measured on the card: plain 6.1e-2, 128^2 4.6e-2, 384^2 5.2e-2, TTA
+# 3.9e-2; sharing the decoder's attention masks changes none of it), so
+# TTA's max |bf16 - fp32| over max |fp32| is held to this multiple of the
+# plain eval step's on the same batch (tests/test_bf16_eval.py's 0.05
+# absolute is the tiny model's, whose maps sum 8 queries)
+BF16_TTA_MARGIN = 1.5
+# the JPEG codec's round trip at quality 95 on synthetic frames (smooth
+# background, a shape, fine noise in every channel, which 4:2:0 halves in
+# chroma): PSNR floors in dB, a few below what the CPU measures (32.4 / 36.7
+# / 43.1 at 224^2)
+JPEG_QUALITY = 95
+JPEG_PSNR_FLOOR = {"420": 30.0, "444": 34.0, "gray": 40.0}
+JPEG_SIZES = ((SIZE, SIZE), (720, 1280))  # a frame, and an AVSBench source frame
 
 # the card's published peaks (NVIDIA H100 SXM data sheet, at the 700 W limit):
 # HBM bandwidth and float32 outside the tensor cores
@@ -514,6 +553,9 @@ def phase_k1(dev: torch.device) -> dict:
         ("train_bf16", torch.bfloat16, K1_LEVELS, train, Lq, K1_TOL_BF16),
         ("ragged_fp32", torch.float32, ragged_levels, ragged, 37, K1_TOL_FP32),
         ("ragged_bf16", torch.bfloat16, ragged_levels, ragged, 37, K1_TOL_BF16),
+        # the TTA branches' shapes (bf16, 20 frames) at 128^2 and 384^2
+        *((f"tta{s}_bf16", torch.bfloat16, tta_levels(s), K1_SHAPE,
+           sum(h * w for h, w in tta_levels(s)), K1_TOL_BF16) for s in (128, 384)),
     ]
     with torch.inference_mode():
         for name, dtype, levels, shp, lq, tol in cases:
@@ -524,14 +566,16 @@ def phase_k1(dev: torch.device) -> dict:
                 levels, shp["B"], lq, shp["M"], shp["D"], shp["P"], value.element_size(), limit,
                 sms)
             chosen = plan_at(optin)
-            # a staged plan at an unbounded limit raises at launch if it does not fit
-            other = plan_at(0 if chosen.kernel == "staged" else 2**31)
+            # a staged plan at an unbounded limit raises at launch if it does not fit:
+            # where the choice is global, staged does not fit and is not forced
+            other = plan_at(0) if chosen.kernel == "staged" else None
+            timed = levels == K1_LEVELS or name == "tta384_bf16"
             row = {"chosen": chosen.kernel, "plans": {}}
             # the chosen plan runs as the wrapper picks it; the other is forced
-            for plan, forced in ((chosen, None), (other, other)):
+            for plan, forced in ((chosen, None), (other, other))[:2 if other else 1]:
                 fn = lambda: k1.ms_deform_attn_cuda(value, levels, loc, w, plan=forced)  # noqa: E731
                 err = compare(f"[k1] {name} ({plan.kernel}, levels {levels})", fn(), want, tol)
-                if levels != K1_LEVELS:
+                if not timed:
                     continue
                 t = timings(fn, plain=(lambda: ms_deform_attn_plain(value, levels, loc, w))
                             if plan is chosen else None)
@@ -541,13 +585,18 @@ def phase_k1(dev: torch.device) -> dict:
                     f"{plan}: {describe(t)}; bound {bd['bound_ms']:.4f} ms by {bd['bound_by']} "
                     f"({bd['bound_ms'] / t['ms']:.0%} of it)")
                 row["plans"][plan.kernel] = dict(err, plan=plan._asdict(), **t, **bd)
-            if levels == K1_LEVELS:
+            if timed:
                 ms = {kn: v["ms"] for kn, v in row["plans"].items()}
                 log(f"[k1] {name}, device ms: " + ", ".join(f"{kn} {v:.4f}" for kn, v in ms.items())
                     + f" (chosen: {chosen.kernel}); the card's opt-in limit {optin} bytes "
                     "per block")
                 result[name] = dict(row["plans"][chosen.kernel], **row)
     return result
+
+
+def tta_levels(s: int) -> tuple:
+    """The pixel decoder's levels (res5, res4, res3) for s x s frames."""
+    return tuple((s // r, s // r) for r in (32, 16, 8))
 
 
 def _one_level(rows: int) -> tuple:
@@ -839,7 +888,12 @@ def phase_k7(dev: torch.device) -> dict:
              ("x3_bf16", torch.bfloat16, x3, (3 * MASK_HW, 3 * MASK_HW), K7_TOL_BF16),
              ("x2x8_c5_fp32", torch.float32, dict(N=3, Q=9, C=5, h=7, w=6), (14, 48), TOL_FP32),
              ("ragged_fp32", torch.float32, dict(N=3, Q=7, C=5, h=5, w=9), (13, 31), TOL_FP32),
-             ("same_size_fp32", torch.float32, dict(N=2, Q=3, C=8, h=6, w=6), (6, 6), TOL_FP32)]
+             ("same_size_fp32", torch.float32, dict(N=2, Q=3, C=8, h=6, w=6), (6, 6), TOL_FP32),
+             # the TTA branches' masks (bf16) at 128^2 (7x: patch) and 384^2 (96 -> 224: pixel)
+             ("tta128_bf16", torch.bfloat16, dict(K7_SHAPE, h=32, w=32), (SIZE, SIZE),
+              K7_TOL_BF16),
+             ("tta384_bf16", torch.bfloat16, dict(K7_SHAPE, h=96, w=96), (SIZE, SIZE),
+              K7_TOL_BF16)]
     with torch.inference_mode():
         for name, dtype, shp, size, tol in cases:
             cls, mask, tm = seminf_inputs(shp["N"], shp["Q"], shp["C"], shp["h"], shp["w"],
@@ -860,7 +914,7 @@ def phase_k7(dev: torch.device) -> dict:
                     err = compare(f"[k7] {name} ({plan.kernel}"
                                   f"{'' if temporal is None else ', temporal'})", got,
                                   k.semantic_inference_plain(cls, mask, size, temporal), tol)
-                if name not in ("fp32", "bf16"):
+                if name not in ("fp32", "bf16", "tta384_bf16"):
                     continue
                 t = timings(lambda: k.seminf_cuda(cls, mask, size, plan=forced),
                             plain=(lambda: k.semantic_inference_plain(cls, mask, size))
@@ -875,6 +929,8 @@ def phase_k7(dev: torch.device) -> dict:
                     f"{plan}: {describe(t)}; bound {bd['bound_ms']:.4f} ms by {bd['bound_by']} "
                     f"({bd['bound_ms'] / t['ms']:.0%} of it)")
                 row["plans"][plan.kernel] = dict(err, plan=plan._asdict(), **t, **bd)
+            if name == "tta384_bf16":
+                result[name] = row["plans"]["pixel"]
             if name not in ("fp32", "bf16"):
                 continue
             # F.interpolate alone: a part of the plain version, not the same function
@@ -1122,6 +1178,200 @@ def phase_eval_entry(model, smi: str) -> dict:
                              f"{out['fp32_procs2']['metrics']} differ from inline {a}")
     log(f"[eval-entry] metrics on 2 forked worker processes equal the inline ones")
     return out
+
+
+def phase_jpeg(smi: str) -> dict:
+    """The port's JPEG codec (`combo_avs_torch/native/jpeg.c`), built with
+    the host compiler from the checkout: synthetic frames (the synthetic
+    trees' content) at 224^2 and at an AVSBench source size, 1280 x 720,
+    encoded at quality JPEG_QUALITY and decoded back at 4:2:0, 4:4:4 and
+    gray; each round trip above its PSNR floor; ms per frame of each. Its
+    byte equality with libjpeg is held on the CPU (tests/test_torch_jpeg.py:
+    cv2 is not on this machine)."""
+    from combo_avs_torch.data import jpeg
+    from combo_avs_torch.data.synth import _video_frames
+    from combo_avs_torch.ops import _build
+
+    t0 = time.perf_counter()
+    _build.load_host(jpeg.SOURCE)
+    log(f"[jpeg] {jpeg.SOURCE} -> {_build.host_library_path(jpeg.SOURCE)} in "
+        f"{time.perf_counter() - t0:.2f} s (host compiler {' '.join(_build.find_cc())})")
+    rng = np.random.RandomState(SEED)
+    out = {}
+    for h, w in JPEG_SIZES:
+        frame = _video_frames(rng, 3, 1, max(h, w))[0][0][:h, :w]
+        reps = 20 if h * w <= SIZE * SIZE else 5
+        for sub in ("420", "444", "gray"):
+            img = np.ascontiguousarray(frame[..., 1]) if sub == "gray" else frame
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                data = jpeg.encode_jpeg(img, JPEG_QUALITY, "444" if sub == "444" else "420")
+            enc_ms = (time.perf_counter() - t0) / reps * 1e3
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                back = jpeg.decode_jpeg(data, gray=sub == "gray")
+            dec_ms = (time.perf_counter() - t0) / reps * 1e3
+            if back.shape != img.shape:
+                raise AssertionError(f"[jpeg] {h}x{w} {sub}: decoded {back.shape}, wrote "
+                                     f"{img.shape}")
+            mse = float(((back.astype(np.float64) - img) ** 2).mean())
+            psnr = 10 * np.log10(255.0 ** 2 / max(mse, 1e-12))
+            if psnr < JPEG_PSNR_FLOOR[sub]:
+                raise AssertionError(f"[jpeg] {h}x{w} {sub}: PSNR {psnr:.2f} dB below "
+                                     f"{JPEG_PSNR_FLOOR[sub]}")
+            log(f"[jpeg] {h}x{w} {sub} q{JPEG_QUALITY}: {len(data)} bytes, PSNR {psnr:.2f} dB "
+                f"(floor {JPEG_PSNR_FLOOR[sub]}); encode {enc_ms:.3f} ms, decode {dec_ms:.3f} ms "
+                f"a frame (host, {reps} frames) on {smi}")
+            out[f"{h}x{w}_{sub}"] = {"bytes": len(data), "psnr_db": psnr, "encode_ms": enc_ms,
+                                     "decode_ms": dec_ms}
+    return out
+
+
+def tta_plans_per_batch(dev: torch.device, frames: int) -> dict:
+    """K1 and K7 launches by plan in one TTA batch of `frames` frames in
+    bf16 with flip, as the launch-plan functions choose them at each of
+    TTA_SCALES: K1 6 a forward (the encoder layers), K7 1."""
+    from combo_avs_torch.ops import deform_attn_cuda, seminf_cuda
+
+    optin, sms = deform_attn_cuda.smem_optin(dev.index), deform_attn_cuda.sm_count(dev.index)
+    k1 = dict.fromkeys(deform_attn_cuda.fwd_plan_launches, 0)
+    k7 = dict.fromkeys(seminf_cuda.plan_launches, 0)
+    for s in TTA_SCALES:
+        levels = tta_levels(s)
+        plan = deform_attn_cuda.fwd_launch_plan(levels, frames, sum(h * w for h, w in levels),
+                                                K1_SHAPE["M"], K1_SHAPE["D"], K1_SHAPE["P"], 2,
+                                                optin, sms)
+        k1[plan.kernel] += 6 * 2
+        k7[seminf_cuda.launch_plan(frames, NUM_QUERIES, 2, s // 4, s // 4, SIZE, SIZE).kernel] += 2
+    return {"k1": k1, "k7": k7}
+
+
+def phase_tta(model, smi: str) -> dict:
+    """Test-time augmentation through the evaluation entry point, as a user
+    runs it: `pred --config-file avs_s4/Test_COMBO_R50_bs8_90k.yaml --save-vis
+    TEST.AUG.ENABLED True` with the model's reference `.pth`, over a
+    synthetic S4 test split of TTA_VIDEOS videos at batch EVAL_BATCH, bf16
+    (TEST.BF16 auto), scales TTA_SCALES with flip: finite metrics in [0, 1];
+    K1 and K7 launches by plan, each batch as the plan functions give them
+    (`tta_plans_per_batch`); one vis PNG per frame holding the argmax of the
+    prediction scored; no import of jax, flax, yaml, cv2, tensorflow or the
+    JAX package. Then, on one batch: TTA at [224] without flip equals
+    `make_eval_step` bit for bit; bf16 TTA against fp32 TTA (TF32 off)
+    within BF16_TTA_MARGIN of the plain eval step's own bf16 error on the
+    batch; and the bf16 TTA step's wall and device time."""
+    import tempfile
+    from unittest import mock
+
+    from combo_avs_torch import pred
+    from combo_avs_torch.data.png import read_png
+    from combo_avs_torch.data.synth import make_s4
+    from combo_avs_torch.evaluation.visual import binary_color_map
+    from combo_avs_torch.train import evaluate as evaluate_mod
+    from combo_avs_torch.train.checkpoint import save_reference_checkpoint
+    from combo_avs_torch.train.train_step import make_eval_step, make_tta_eval_step
+
+    dev = next(model.parameters()).device
+    batches = -(-TTA_VIDEOS // EVAL_BATCH)
+    per_batch = tta_plans_per_batch(dev, EVAL_BATCH * T)
+    timings_, dumped = [], []
+    real_vis = evaluate_mod.save_prediction_vis
+
+    def recording_vis(vis_dir, video, p):
+        dumped.append((video, p.copy()))
+        real_vis(vis_dir, video, p)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        make_s4(tmp, 0, 0, size=SIZE, n_test=TTA_VIDEOS)
+        ckpt = os.path.join(tmp, "model_best.pth")
+        save_reference_checkpoint(model, ckpt)
+        log(f"[tta] synthetic S4 test tree: {TTA_VIDEOS} videos x {T} frames x {SIZE}^2 and the "
+            f".pth in {time.perf_counter() - t0:.1f} s")
+        out_dir = os.path.join(tmp, "out")
+        with mock.patch.object(evaluate_mod, "evaluate", timed_evaluate(timings_)), \
+                mock.patch.object(evaluate_mod, "save_prediction_vis", recording_vis):
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            res = pred.main(["--datasets-root", tmp, "--checkpoint", ckpt, "--config-file",
+                             TTA_CONFIG, "--batch-size", str(EVAL_BATCH), "--output-dir",
+                             out_dir, "--save-vis", "TEST.AUG.ENABLED", "True"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        check_imports("[tta] pred.main")
+        counts, plans = read_counts(), _plans()
+        want = {k: {"k1": 36 * batches, "k7": 6 * batches}.get(k, 0) for k in counts}
+        want_plans = {k: {kn: c * batches for kn, c in v.items()} for k, v in per_batch.items()}
+        if counts != want or {k: plans[k] for k in want_plans} != want_plans:
+            raise AssertionError(f"[tta] launches {counts} by plan {plans}, expected {want} by "
+                                 f"plan {want_plans}")
+        m, (tm,) = res["sem_seg"], timings_
+        scored = (tm["dataset"], tm["bf16"], tm["evaluator"])
+        if scored != ("avss4_sem_seg_test", True, "SemSegEvaluator"):
+            raise AssertionError(f"[tta] pred scored {scored}, expected avss4_sem_seg_test in "
+                                 "bf16 with the S4 evaluator")
+        if not all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in m.values()) or \
+                tm["videos"] != TTA_VIDEOS:
+            raise AssertionError(f"[tta] metrics {m} over {tm['videos']} videos")
+        vis = os.path.join(out_dir, "vis", "avss4_sem_seg_test")
+        names = sorted(f"{v}_{t}.png" for v, p in dumped for t in range(p.shape[0]))
+        if len(dumped) != TTA_VIDEOS or sorted(os.listdir(vis)) != names:
+            raise AssertionError(f"[tta] {len(dumped)} predictions dumped, {vis} holds "
+                                 f"{sorted(os.listdir(vis))}")
+        palette = binary_color_map()
+        for video, p in dumped:
+            for t in range(p.shape[0]):
+                if not np.array_equal(read_png(os.path.join(vis, f"{video}_{t}.png")),
+                                      palette[p[t].argmax(0)]):
+                    raise AssertionError(f"[tta] {video}_{t}.png is not the argmax of its "
+                                         "prediction")
+    log(f"[tta] pred --save-vis TEST.AUG.ENABLED True: {tm['dataset']} in bf16, scales "
+        f"{list(TTA_SCALES)} with flip: mIoU {m['mIoU']:.4f}, f_score {m['f_score']:.4f}; "
+        f"{tm['videos']} videos, {tm['frames']} frames in {tm['total_s']:.3f} s (data "
+        f"{tm['data_s']:.3f}, compute {tm['compute_s']:.3f}, eval {tm['eval_s']:.3f}): "
+        f"{tm['videos'] / tm['total_s']:.2f} videos/s; pred.main {wall:.1f} s wall; launches "
+        f"{counts} by plan K1 {plans['k1']}, K7 {plans['k7']} (a batch: {per_batch}); "
+        f"{len(names)} vis PNGs, each the argmax of its prediction, on {smi}")
+
+    rng = np.random.RandomState(SEED + 7)
+    batch = dict(_batch(rng, dev), vid_temporal_mask=torch.ones((B, T), device=dev))
+    plain = make_eval_step(model, out_size=(SIZE, SIZE), bf16=True)(batch)
+    one = make_tta_eval_step(model, [SIZE], False, (SIZE, SIZE), bf16=True)(batch)
+    if not torch.equal(one, plain):
+        raise AssertionError(f"[tta] TTA at [{SIZE}] without flip differs from make_eval_step "
+                             f"by {float((one - plain).abs().max()):.3e}")
+    step16 = make_tta_eval_step(model, TTA_SCALES, True, (SIZE, SIZE), bf16=True)
+    with tf32_off():
+        fp32 = make_tta_eval_step(model, TTA_SCALES, True, (SIZE, SIZE))(batch)
+        plain32 = make_eval_step(model, out_size=(SIZE, SIZE))(batch)
+    bf16 = step16(batch)
+
+    def rel(a, b):  # max |a - b| over max |b|
+        return float((a - b).abs().max() / b.abs().max())
+
+    err, err_plain = rel(bf16, fp32), rel(plain, plain32)
+    if not np.isfinite(err) or err > BF16_TTA_MARGIN * err_plain:
+        raise AssertionError(f"[tta] bf16 TTA against fp32: {err:.3e} of max |fp32|, above "
+                             f"{BF16_TTA_MARGIN} x the plain step's {err_plain:.3e}")
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step16(batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall_ms = float(np.median(walls))
+    prof = profile_window("tta step bf16", lambda: step16(batch), wall_ms)
+    log(f"[tta] on one batch [{B}x{T}x{SIZE}^2]: TTA at [{SIZE}] without flip equals "
+        f"make_eval_step bit for bit; bf16 against fp32 (TF32 off), max abs over max |fp32|: "
+        f"TTA {err:.3e}, the plain step {err_plain:.3e} (TTA's held to {BF16_TTA_MARGIN} x); "
+        f"the bf16 TTA step {wall_ms:.2f} ms wall (median of 3), "
+        f"{prof['device_ms']:.2f} ms device on {smi}")
+    return {"metrics": m, "timing": tm, "launches": counts, "plans": plans,
+            "plans_per_batch": per_batch, "wall_s": wall, "bf16_vs_fp32_rel": err,
+            "plain_bf16_vs_fp32_rel": err_plain,
+            "step_wall_ms": wall_ms, "step_device_ms": prof["device_ms"],
+            "step_busy_share": prof["busy_share"]}
 
 
 def phase_train_fallback(model) -> dict:
@@ -2181,9 +2431,15 @@ def phase_avss(smi: str, dev: torch.device, walls: dict) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         make_avss(tmp, AVSS_TRAIN_VIDEOS, AVSS_VAL_VIDEOS, AVSS_TEST_VIDEOS, size=SIZE)
+        frames = [os.path.join(d, f) for d, _, fs in os.walk(tmp) for f in fs
+                  if os.path.basename(d) == "processed_frames" and "pre_SAM_mask" not in d]
+        jpegs = [f for f in frames if f.endswith(".jpg") and open(f, "rb").read(2) == b"\xff\xd8"]
+        if not frames or len(jpegs) != len(frames):
+            raise AssertionError(f"[avss-entry] {len(jpegs)} of {len(frames)} frames are JPEG")
         log(f"[avss-entry] synthetic AVSS tree: {AVSS_TRAIN_VIDEOS} train, {AVSS_VAL_VIDEOS} val "
-            f"and {AVSS_TEST_VIDEOS} test videos (v1s, v1m: 5 frames; v2: 10) x {SIZE}^2 in "
-            f"{time.perf_counter() - t0:.1f} s")
+            f"and {AVSS_TEST_VIDEOS} test videos (v1s, v1m: 5 frames; v2: 10) x {SIZE}^2, "
+            f"{len(jpegs)} frames JPEG (q95, 4:2:0, as AVSBench-semantic's), Maskiges and "
+            f"labels PNG, in {time.perf_counter() - t0:.1f} s")
         out["entry"] = phase_avss_entry(smi, tmp, out["train"]["s_per_step"])
         walls["avss-entry"] = time.perf_counter() - t0
         t0 = time.perf_counter()
@@ -2241,6 +2497,7 @@ def main(argv=None) -> int:
     from combo_avs_torch.models.meta_arch import MaskFormer
 
     walls["kernels"] = time.perf_counter() - t_start
+    jp = timed("jpeg", phase_jpeg, smi)
     t0 = time.perf_counter()
     model = init_weights(MaskFormer(), seed=SEED)  # builds on the current CUDA device
     if next(model.parameters()).device != dev:
@@ -2251,6 +2508,7 @@ def main(argv=None) -> int:
         f"{torch.cuda.get_device_name(0)} in {time.perf_counter() - t0:.1f} s")
     sl = timed("slice", phase_slice, model, smi)
     ee = timed("eval-entry", phase_eval_entry, model, smi)
+    tta = timed("tta", phase_tta, model, smi)
     tr = timed("train", phase_train, model, smi)
     te = timed("train-entry", phase_train_entry, smi, tr["s_per_step"], R50_CONFIG)
     # the card-vs-CPU phases see the weights of the training steps above
@@ -2269,7 +2527,8 @@ def main(argv=None) -> int:
              "train_fallback": fb, "pvt_eval": pvt["slice"]["launches"],
              "pvt_train": pvt["train"]["launches"], "pvt_train_entry": pvt["entry"]["launches"],
              "pvt_pred_ms3": pvt["pred_ms3"]["launches"], "avss_train": avss["train"]["launches"],
-             "avss_train_entry": avss["entry"]["launches"], "avss_pred": avss["pred"]["launches"]}
+             "avss_train_entry": avss["entry"]["launches"], "avss_pred": avss["pred"]["launches"],
+             "tta_pred": tta["launches"]}
 
     def by_path(k):
         return {name: counts[k] for name, counts in paths.items()}
@@ -2293,6 +2552,11 @@ def main(argv=None) -> int:
                      ms_bf16=k1["bf16"]["ms"], call_ms_bf16=k1["bf16"]["call_ms"],
                      plain_ms_bf16=k1["bf16"]["plain_ms"], bound_ms_bf16=k1["bf16"]["bound_ms"],
                      ms_train=k1["train_fp32"]["ms"], bound_ms_train=k1["train_fp32"]["bound_ms"],
+                     tta_launches_by_plan=tta["plans"]["k1"],
+                     **{f"{k}_tta384_bf16": k1["tta384_bf16"][k]
+                        for k in ("max_abs_err", "ms", "call_ms", "host_us", "plain_ms",
+                                  "bound_ms", "bound_by")},
+                     plan_tta384_bf16=k1["tta384_bf16"]["chosen"],
                      plans_ms={name: {kn: v["ms"] for kn, v in k1[name]["plans"].items()}
                                for name in ("fp32", "bf16", "train_fp32", "train_bf16")}),
         kernel_entry("ms_deform_attn_bwd", "combo_avs_torch/csrc/ms_deform_attn_bwd.cu",
@@ -2337,6 +2601,10 @@ def main(argv=None) -> int:
                      max_abs_err_bf16=k7["bf16"]["max_abs_err"], ms_bf16=k7["bf16"]["ms"],
                      call_ms_bf16=k7["bf16"]["call_ms"], plain_ms_bf16=k7["bf16"]["plain_ms"],
                      resize_ms_bf16=k7["bf16"]["resize_ms"], bound_ms_bf16=k7["bf16"]["bound_ms"],
+                     tta_launches_by_plan=tta["plans"]["k7"],
+                     **{f"{k}_tta384_bf16": k7["tta384_bf16"][k]
+                        for k in ("max_abs_err", "ms", "call_ms", "host_us", "plain_ms",
+                                  "bound_ms", "bound_by")},
                      **{f"pixel_{k}{sfx}": k7[name]["pixel_plan"][k]
                         for name, sfx in (("fp32", ""), ("bf16", "_bf16"))
                         for k in ("max_abs_err", "ms", "call_ms", "host_us")}),
@@ -2356,6 +2624,7 @@ def main(argv=None) -> int:
                     "slower_than_library": [r[0] for r in ranked if r[3] > 1],
                     "eval_entry": {k: {"metrics": v["metrics"], "timing": v["timing"]}
                                    for k, v in ee.items()},
+                    "jpeg": jp, "tta": {k: v for k, v in tta.items() if k != "launches"},
                     "avss": avss["summary"], "pvt": pvt["summary"], "walls_s": walls}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,8 @@ Port of `combo_avs_tpu/data/mappers.py::AVSSemanticDatasetMapper.__call__`
 for the three benchmarks (S4, MS3: ref: models/data/dataset_mappers/
 avss4_semantic_dataset_mapper.py:60-240; AVSS: avss_semantic_dataset_mapper.py):
 
-* frames, Maskiges and GT decoded from PNG (`data/png.py`); a binary GT
+* frames, Maskiges and GT decoded from PNG or JPEG, by their content
+  (`data/image.py::read_image`; AVSBench-semantic's frames are JPEG); a binary GT
   (S4, MS3) // 255 -> {0, 1} (ref :139), AVSS's index labels (0..70, 255
   ignored) as they are;
 * in training, one transform per video (`data/transforms.py`: resize to a
@@ -42,7 +43,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from combo_avs_torch.data.png import read_png
+from combo_avs_torch.data.image import read_image
 from combo_avs_torch.data.transforms import sample_video_transform
 
 IGNORE_LABEL = 255  # MODEL.SEM_SEG_HEAD.IGNORE_VALUE
@@ -100,14 +101,14 @@ class AVSSemanticDatasetMapper:
         if self.augmentation and n is None:
             raise ValueError("a training mapper needs the call number n")
         T = record["num_frames"]
-        images = [read_png(p) for p in record["file_names"]]
+        images = [read_image(p) for p in record["file_names"]]
         gts: List[Optional[np.ndarray]] = [None] * T
         for i, p in enumerate(record.get("sem_seg_file_names", [])[:T]):
-            g = read_png(p, gray=True)
+            g = read_image(p, gray=True)
             gts[i] = (g // 255 if self.binary_gt else g).astype(np.uint8)
         pres = None
         if record.get("pre_mask_file_names"):
-            pres = [read_png(p) for p in record["pre_mask_file_names"][:T]]
+            pres = [read_image(p) for p in record["pre_mask_file_names"][:T]]
 
         tf = None
         if self.augmentation:

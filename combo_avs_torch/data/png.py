@@ -7,8 +7,9 @@ the five row filters, and returns uint8 [H, W, 3] RGB, or [H, W] with
 gray=True, as `cv2.imread` (converted to RGB) and the native decoder return
 them: alpha and transparency are dropped, gray is repeated into three
 channels, and a colour image read as gray takes cv2's fixed-point BT.601,
-y = (4899 r + 9617 g + 1868 b + 8192) >> 14. Anything else, JPEG included,
-raises `ValueError`.
+y = (4899 r + 9617 g + 1868 b + 8192) >> 14. Anything else raises
+`ValueError`; `data/image.py::read_image` reads a PNG or a JPEG by its
+content.
 
 `write_png(path, img)` writes uint8 [H, W] gray or [H, W, 3] RGB.
 
@@ -92,10 +93,15 @@ def read_png(path: str, gray: bool = False) -> np.ndarray:
     """The PNG at `path` -> uint8 [H, W, 3] RGB, or [H, W] with gray=True."""
     with open(path, "rb") as f:
         data = f.read()
+    return decode_png(data, gray=gray, name=path)
+
+
+def decode_png(data: bytes, gray: bool = False, name: str = "<bytes>") -> np.ndarray:
+    """PNG bytes -> uint8 [H, W, 3] RGB, or [H, W] with gray=True."""
     if not data.startswith(_SIGNATURE):
-        raise ValueError(f"{path}: not a PNG file (only PNG is decoded)")
+        raise ValueError(f"{name}: not a PNG file (only PNG is decoded)")
     header, palette, idat = None, None, []
-    for kind, body in _chunks(data, path):
+    for kind, body in _chunks(data, name):
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
         elif kind == b"PLTE":
@@ -103,21 +109,21 @@ def read_png(path: str, gray: bool = False) -> np.ndarray:
         elif kind == b"IDAT":
             idat.append(body)
     if header is None:
-        raise ValueError(f"{path}: PNG without IHDR")
+        raise ValueError(f"{name}: PNG without IHDR")
     W, H, depth, ctype, compression, filt, interlace = header
     if depth != 8 or ctype not in _CHANNELS or compression or filt or interlace:
-        raise ValueError(f"{path}: unsupported PNG (bit depth {depth}, colour type {ctype}, "
+        raise ValueError(f"{name}: unsupported PNG (bit depth {depth}, colour type {ctype}, "
                          f"interlace {interlace}); only 8-bit non-interlaced types 0, 2, 3, "
                          "4 and 6 are decoded")
     bpp = _CHANNELS[ctype]
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     if raw.size != H * (1 + W * bpp):
-        raise ValueError(f"{path}: PNG image data has {raw.size} bytes, expected "
+        raise ValueError(f"{name}: PNG image data has {raw.size} bytes, expected "
                          f"{H * (1 + W * bpp)}")
-    px = _unfilter(raw.reshape(H, 1 + W * bpp), H, W, bpp, path)
+    px = _unfilter(raw.reshape(H, 1 + W * bpp), H, W, bpp, name)
     if ctype == 3:
         if palette is None or int(px.max(initial=0)) >= len(palette):
-            raise ValueError(f"{path}: palette PNG without a PLTE entry for every index")
+            raise ValueError(f"{name}: palette PNG without a PLTE entry for every index")
         px = palette[px[..., 0]]
     elif ctype in (4, 6):
         px = px[..., :-1]  # alpha dropped

@@ -9,7 +9,9 @@ all five frames annotated in every split; ref: register_avsms3_sem.py); and
 `make_avss`, the AVSS layout (ref: register_avss_sem.py:25-121): a mix of
 v1s, v1m (5 frames) and v2 (10 frames) videos whose GT is an index-label
 PNG (the shape painted with one of the 70 sounding classes on background
-0), listed in metadata.csv with label2idx.json beside it. The JAX script
+0), listed in metadata.csv with label2idx.json beside it, and whose frames
+are JPEG (quality 95, 4:2:0, `data/jpeg.py`), as AVSBench-semantic ships
+them and `resize_frames` keeps them; every other image is PNG. The JAX script
 writes train rows only; this one writes train, val and test rows. The content is
 learnable, not noise: each of 10 categories is a (shape, colour, audio band)
 triple drifting over a smooth textured background. The background is a
@@ -17,7 +19,7 @@ bicubic upsample of 14 x 14 noise, as the JAX package's script makes it,
 though not bit for bit (PyTorch's bicubic, not cv2's).
 
     python -m combo_avs_torch.data.synth --root DIR [--s4-train 96] [--s4-val 48] \
-        [--ms3-train 0] [--ms3-val 0] [--ms3-test 0] [--avss-train 0] [--avss-val 0] \
+        [--s4-test 0] [--ms3-train 0] [--ms3-val 0] [--ms3-test 0] [--avss-train 0] [--avss-val 0] \
         [--avss-test 0] [--size 224]
 """
 
@@ -32,6 +34,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from combo_avs_torch.data.jpeg import write_jpeg
 from combo_avs_torch.data.png import write_png
 
 N_CATEGORIES = 10
@@ -99,8 +102,12 @@ def _mel(rng: np.random.RandomState, cat: int, T: int) -> np.ndarray:
 
 
 def _write(path: str, img: np.ndarray) -> None:
+    """PNG, or JPEG at quality 95 and 4:2:0 where `path` ends in .jpg."""
     os.makedirs(os.path.dirname(path), exist_ok=True)
-    write_png(path, img)
+    if path.endswith(".jpg"):
+        write_jpeg(path, img, quality=95, subsampling="420")
+    else:
+        write_png(path, img)
 
 
 def _make(data: str, n_train: int, n_val: int, size: int, by_category: bool,
@@ -131,11 +138,11 @@ def _make(data: str, n_train: int, n_val: int, size: int, by_category: bool,
     return data
 
 
-def make_s4(root: str, n_train: int, n_val: int, size: int = FRAME) -> str:
-    """Write the S4 train and val splits under `root`; returns the s4_data
-    directory. Train videos carry GT for their first frame only."""
+def make_s4(root: str, n_train: int, n_val: int, size: int = FRAME, n_test: int = 0) -> str:
+    """Write the S4 train, val and test splits under `root`; returns the
+    s4_data directory. Train videos carry GT for their first frame only."""
     return _make(os.path.join(root, "Single-source", "s4_data"), n_train, n_val, size,
-                 by_category=True, train_gt=1)
+                 by_category=True, train_gt=1, n_test=n_test)
 
 
 def make_ms3(root: str, n_train: int, n_val: int, size: int = FRAME, n_test: int = 0) -> str:
@@ -150,7 +157,7 @@ def make_avss(root: str, n_train: int, n_val: int, n_test: int = 0, size: int = 
     AVSS directory. Video v of a split is a v1s, v1m or v2 video as v % 3
     is 0, 1 or 2 (5, 5 or 10 frames), of category v % 10, its shape painted
     with class 1 + v % 70; every frame carries its label (the catalog keeps a
-    v1s train video's first)."""
+    v1s train video's first). Frames are JPEG, Maskiges and labels PNG."""
     avss = os.path.join(root, "AVSS")
     os.makedirs(avss, exist_ok=True)
     with open(os.path.join(avss, "label2idx.json"), "w") as f:
@@ -167,7 +174,7 @@ def make_avss(root: str, n_train: int, n_val: int, n_test: int = 0, size: int = 
             frames, masks, maskiges = _video_frames(rng, cat_id, T, size)
             vdir = os.path.join(avss, subset, vid)
             for t in range(T):
-                _write(os.path.join(vdir, "processed_frames", f"{t}.png"), frames[t])
+                _write(os.path.join(vdir, "processed_frames", f"{t}.jpg"), frames[t])
                 _write(os.path.join(avss, "pre_SAM_mask", subset, vid, "processed_frames",
                                     f"{t}_mask_color.png"), maskiges[t])
                 _write(os.path.join(vdir, "processed_labels_semantic", f"{t}.png"),
@@ -185,6 +192,7 @@ def main() -> None:
     ap.add_argument("--root", required=True)
     ap.add_argument("--s4-train", type=int, default=96)
     ap.add_argument("--s4-val", type=int, default=48)
+    ap.add_argument("--s4-test", type=int, default=0)
     ap.add_argument("--ms3-train", type=int, default=0)
     ap.add_argument("--ms3-val", type=int, default=0)
     ap.add_argument("--ms3-test", type=int, default=0)
@@ -193,8 +201,8 @@ def main() -> None:
     ap.add_argument("--avss-test", type=int, default=0)
     ap.add_argument("--size", type=int, default=FRAME)
     args = ap.parse_args()
-    if args.s4_train or args.s4_val:
-        print(make_s4(args.root, args.s4_train, args.s4_val, args.size))
+    if args.s4_train or args.s4_val or args.s4_test:
+        print(make_s4(args.root, args.s4_train, args.s4_val, args.size, args.s4_test))
     if args.ms3_train or args.ms3_val or args.ms3_test:
         print(make_ms3(args.root, args.ms3_train, args.ms3_val, args.size, args.ms3_test))
     if args.avss_train or args.avss_val or args.avss_test:

@@ -8,17 +8,23 @@ describes (`models/meta_arch.py::build_model`), and the config says how to
 evaluate, as the JAX `pred.py` reads it: every split of DATASETS.TEST, each
 with its benchmark's mapper and evaluator (`train/trainer.py::build_mapper`,
 `build_evaluator`), frames padded to INPUT.SIZE_DIVISIBILITY, the precision
-of TEST.BF16 ("auto": bf16 on the card, fp32 on the CPU), TEST.AUG.ENABLED
-refused (test-time augmentation is not ported), and the results checked
-against TEST.EXPECTED_RESULTS (`verify_results`). `--dataset` and `--bf16`
-override the config's splits and precision. Without a config the model is
-`MaskFormer()`'s defaults, COMBO-R50 S4, at 224, on `--dataset`
-(avss4_sem_seg_test by default), fp32 unless `--bf16`.
+of TEST.BF16 ("auto": bf16 on the card, fp32 on the CPU), the multi-scale
+and flip test-time augmentation when TEST.AUG.ENABLED (TEST.AUG.MIN_SIZES,
+TEST.AUG.FLIP), and the results checked against TEST.EXPECTED_RESULTS
+(`verify_results`). Trailing `KEY VALUE` pairs override the config's keys,
+as in the JAX `pred.py` (e.g. `TEST.AUG.ENABLED True`). `--dataset` and
+`--bf16` override the config's splits and precision. `--save-vis` writes
+each frame's prediction as a coloured PNG to `<out>/vis/<dataset>/`, where
+`<out>` is `--output-dir`, else the config's OUTPUT_DIR. Without a config
+the model is `MaskFormer()`'s defaults, COMBO-R50 S4, at 224, on
+`--dataset` (avss4_sem_seg_test by default), fp32 unless `--bf16`, and no
+overrides are taken.
 
     python -m combo_avs_torch.pred --datasets-root DIR --checkpoint model_best.pth \
         [--config-file combo_avs_tpu/configs/avs_ss/Test_COMBO_R50_bs8_90k.yaml] \
         [--dataset avss4_sem_seg_test | avsms3_sem_seg_test | avss_sem_seg_test | ...] \
-        [--max-videos N] [--batch-size 4] [--bf16] [--output-dir DIR] [--device cpu]
+        [--max-videos N] [--batch-size 4] [--bf16] [--output-dir DIR] [--device cpu] \
+        [--save-vis] [KEY VALUE ...]
 
 It runs on the current CUDA device unless `--device` names another. Trees
 to try it on: `python -m combo_avs_torch.data.synth --root DIR [--ms3-val N]
@@ -50,6 +56,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                    "the config's TEST.BF16, or fp32 without a config)")
     p.add_argument("--output-dir", default="")
     p.add_argument("--device", default=None, help="default: the current CUDA device")
+    p.add_argument("--save-vis", action="store_true",
+                   help="write coloured prediction PNGs to <out>/vis/<dataset>")
+    p.add_argument("opts", nargs=argparse.REMAINDER, default=[],
+                   help="config overrides, KEY VALUE pairs (needs --config-file)")
     return p.parse_args(argv)
 
 
@@ -66,16 +76,18 @@ def main(argv=None) -> dict:
 
     register_all(args.datasets_root)
     cfg = None
+    if args.opts and not args.config_file:
+        raise SystemExit(f"config overrides {args.opts} need --config-file")
     if args.config_file:
         from combo_avs_torch.config import setup_cfg
 
-        cfg = setup_cfg(args.config_file)
+        cfg = setup_cfg(args.config_file, args.opts)
         model = build_model(cfg, args.device)
         settings = eval_settings(cfg, next(model.parameters()).device)
         datasets = [args.dataset] if args.dataset else list(cfg.DATASETS.TEST)
     else:
         model = MaskFormer(device=args.device)
-        settings = {"size": 224, "bf16": False}
+        settings = {"size": 224, "bf16": False, "tta": None}
         datasets = [args.dataset or DEFAULT_DATASET]
     if args.bf16:
         settings["bf16"] = True
@@ -85,13 +97,15 @@ def main(argv=None) -> dict:
                          f"(found: {sorted(DatasetCatalog)})")
     load_reference_checkpoint(model, args.checkpoint)
     logging.getLogger("COMBO").info("Loaded checkpoint %s", args.checkpoint)
+    vis_root = args.output_dir or (cfg.OUTPUT_DIR if cfg is not None else "")
     results = {}
     for name in datasets:
         per_split = {} if cfg is None else {"mapper": build_mapper(cfg, is_train=False),
                                             "evaluator": build_evaluator(cfg, name)}
+        vis_dir = os.path.join(vis_root, "vis", name) if args.save_vis else None
         results[name], _ = evaluate(model.eval(), name, batch_size=args.batch_size,
                                     max_videos=args.max_videos, output_dir=args.output_dir,
-                                    **settings, **per_split)
+                                    vis_dir=vis_dir, **settings, **per_split)
         print(name, results[name]["sem_seg"], flush=True)
     single = len(results) == 1
     if cfg is not None:

@@ -13,9 +13,14 @@ processes whose partial evaluators are merged; and the results written to
 `<output_dir>/inference/<dataset>/sem_seg_evaluation.pth`. The split's
 `evaluator_type` picks the evaluator and the mapper's labels: "sem_seg"
 (S4, MS3: binary GT, `SemSegEvaluator`) or "sem_seg_ss" (AVSS: index labels,
-`SemSegEvaluatorSS`). A batch that
+`SemSegEvaluatorSS`). With `tta` the step is the multi-scale and flip
+test-time augmentation (`train_step.py::make_tta_eval_step`), as the JAX
+evaluate builds it when TEST.AUG.ENABLED; with `vis_dir` each scored
+frame's argmax is written there as a coloured PNG (`save_prediction_vis`),
+and the metrics are computed inline. A batch that
 runs the card out of memory is computed again one video at a time
-(`run_step`); `eval_settings` reads the size and precision from a config.
+(`run_step`); `eval_settings` reads the size, precision and TTA from a
+config.
 
 The worker pool forks its workers before the loader's threads exist (spawn
 would re-import the caller's `__main__`); the workers run numpy and CPU
@@ -44,7 +49,8 @@ from combo_avs_torch.data.mappers import AVSS_MAX_INSTANCES, AVSSemanticDatasetM
 from combo_avs_torch.evaluation.evaluator import (SemSegEvaluator, SemSegEvaluatorSS,
                                                   eval_video_partial, eval_video_partial_ss)
 from combo_avs_torch.evaluation.postprocess import crop_and_resize_gt, sem_seg_postprocess
-from combo_avs_torch.train.train_step import make_eval_step
+from combo_avs_torch.evaluation.visual import binary_color_map, save_mask_png, v2_pallete
+from combo_avs_torch.train.train_step import make_eval_step, make_tta_eval_step
 
 logger = logging.getLogger("COMBO")
 
@@ -138,7 +144,8 @@ def default_evaluator(dataset_name: str):
 def evaluate(model: torch.nn.Module, dataset_name: str, batch_size: int = 1,
              max_videos: Optional[int] = None, bf16: bool = False, size: int = 224,
              output_dir: str = "", mapper: Optional[Callable[[Dict], Dict]] = None,
-             evaluator=None) -> Tuple[Dict, Dict]:
+             evaluator=None, tta: Optional[Dict] = None,
+             vis_dir: Optional[str] = None) -> Tuple[Dict, Dict]:
     """Evaluate `model` (on its own device) over the registered dataset.
     Returns ({"sem_seg": metrics}, timing): metrics "mIoU" and "f_score"
     (AVSS adds "mIoU_noBg" and "f_score_noBg"), timing the wall, data,
@@ -146,7 +153,10 @@ def evaluate(model: torch.nn.Module, dataset_name: str, batch_size: int = 1,
     `size` is INPUT.SIZE_DIVISIBILITY, the padded frame size; `mapper`
     defaults to the split's eval mapper at that size (binary or index
     labels), `evaluator` to a fresh one of the split's type
-    (`default_evaluator`)."""
+    (`default_evaluator`). `tta` ({"scales": [...], "flip": bool}) runs
+    `make_tta_eval_step`; `vis_dir` receives one `<video>_<t>.png` per
+    scored frame (`save_prediction_vis`) and turns the `COMBO_EVAL_PROCS`
+    pool off, as in the JAX package."""
     evaluator = evaluator if evaluator is not None else default_evaluator(dataset_name)
     records = DatasetCatalog[dataset_name]()
     if max_videos:
@@ -156,11 +166,18 @@ def evaluate(model: torch.nn.Module, dataset_name: str, batch_size: int = 1,
         mapper = (AVSSemanticDatasetMapper(size_divisibility=size, binary_gt=False,
                                            max_instances=AVSS_MAX_INSTANCES) if semantic
                   else AVSSemanticDatasetMapper(size_divisibility=size))
-    step = make_eval_step(model, out_size=(size, size), bf16=bf16)
+    if tta is not None:
+        step = make_tta_eval_step(model, scales=tta["scales"], flip=tta["flip"],
+                                  out_size=(size, size), bf16=bf16)
+    else:
+        step = make_eval_step(model, out_size=(size, size), bf16=bf16)
     device = next(model.parameters()).device
     n_devices = torch.cuda.device_count() if device.type == "cuda" else 1
+    if vis_dir:
+        os.makedirs(vis_dir, exist_ok=True)
 
-    eval_procs = int(os.environ.get("COMBO_EVAL_PROCS", "0") or 0)
+    # the vis dump needs each prediction here, so it keeps the metrics inline
+    eval_procs = 0 if vis_dir else int(os.environ.get("COMBO_EVAL_PROCS", "0") or 0)
     pool = MetricPool(eval_procs) if eval_procs > 0 else None
     n_videos_total, n_done, n_pad, n_frames = len(records), 0, 0, 0
     t_compute = t_data = t_eval = 0.0
@@ -205,8 +222,10 @@ def evaluate(model: torch.nn.Module, dataset_name: str, batch_size: int = 1,
                                     ow)
                     pool.drain(evaluator, keep=4 * eval_procs)
                     continue
-                evaluator.process(sem_seg_postprocess(sem[b], hw, oh, ow),
-                                  crop_and_resize_gt(batch["sem_segs"][b], hw, oh, ow))
+                pred = sem_seg_postprocess(sem[b], hw, oh, ow)
+                evaluator.process(pred, crop_and_resize_gt(batch["sem_segs"][b], hw, oh, ow))
+                if vis_dir:
+                    save_prediction_vis(vis_dir, recs[b]["video"], pred)
             n_frames += T * real
             t_eval += time.perf_counter() - te
             t_mark = time.perf_counter()
@@ -241,20 +260,33 @@ def evaluate(model: torch.nn.Module, dataset_name: str, batch_size: int = 1,
     return results, timing
 
 
+def save_prediction_vis(vis_dir: str, video: str, pred: np.ndarray) -> None:
+    """One coloured PNG per frame, `<video>_<t>.png`, of pred [T, C, H, W]'s
+    argmax over classes: with C = 2 the evaluator's own decision (fg score
+    above bg <=> softmax fg > 0.5), so the dump agrees with the reported
+    mIoU; the binary palette for C <= 2, `v2_pallete(C)` above
+    (combo_avs_tpu/train/trainer.py:369-382)."""
+    T, C = pred.shape[:2]
+    palette = binary_color_map() if C <= 2 else v2_pallete(C)
+    for t in range(T):
+        save_mask_png(os.path.join(vis_dir, f"{video}_{t}.png"),
+                      pred[t].argmax(0).astype(np.int32), palette)
+
+
 def eval_settings(cfg, device: torch.device) -> Dict:
     """evaluate()'s keywords from a config: the padded size from
-    INPUT.SIZE_DIVISIBILITY (224 when unset) and the precision from TEST.BF16,
-    where "auto" is bf16 on the card and fp32 on the CPU
-    (combo_avs_tpu/train/trainer.py:185-188). Test-time augmentation
-    (TEST.AUG.ENABLED) is not ported yet and raises."""
-    if cfg.TEST.AUG.ENABLED:
-        raise NotImplementedError("TEST.AUG.ENABLED = True: test-time augmentation is not "
-                                  "ported yet")
+    INPUT.SIZE_DIVISIBILITY (224 when unset), the precision from TEST.BF16,
+    where "auto" is bf16 on the card and fp32 on the CPU, and, when
+    TEST.AUG.ENABLED, the test-time augmentation's scales and flip
+    (TEST.AUG.MIN_SIZES, TEST.AUG.FLIP; TEST.AUG.MAX_SIZE is ignored, as in
+    JAX) (combo_avs_tpu/train/trainer.py:185-196)."""
     bf16 = cfg.TEST.get("BF16", "auto")
     if bf16 == "auto":
         bf16 = device.type == "cuda"
     size = cfg.INPUT.SIZE_DIVISIBILITY if cfg.INPUT.SIZE_DIVISIBILITY > 0 else 224
-    return {"size": size, "bf16": bool(bf16)}
+    tta = ({"scales": [int(s) for s in cfg.TEST.AUG.MIN_SIZES], "flip": bool(cfg.TEST.AUG.FLIP)}
+           if cfg.TEST.AUG.ENABLED else None)
+    return {"size": size, "bf16": bool(bf16), "tta": tta}
 
 
 def verify_results(results: Dict, expected: Sequence = ()) -> bool:

@@ -1,12 +1,12 @@
 """The train and eval steps.
 
 Port of `combo_avs_tpu/train/train_step.py` (`make_train_step`,
-`make_eval_step`, `_flatten_targets`, `_model_inputs`; `_cast_tree` and
-the AMP step's output cast as `amp_forward`). PyTorch runs eagerly, so
-there is no jit: the train step is forward, criterion, backward and
-optimizer update in one call; the eval step runs under
-`torch.inference_mode()`. Each step sets the model's mode for its call and
-restores the mode it found.
+`make_eval_step`, `make_tta_eval_step`, `_flatten_targets`,
+`_model_inputs`; `_cast_tree` and the AMP step's output cast as
+`amp_forward`). PyTorch runs eagerly, so there is no jit: the train step is
+forward, criterion, backward and optimizer update in one call; the eval
+steps run under `torch.inference_mode()`. Each step sets the model's mode
+for its call and restores the mode it found.
 """
 
 from __future__ import annotations
@@ -139,6 +139,42 @@ def _tensors(module: torch.nn.Module):
     return [*module.parameters(), *module.buffers()]
 
 
+class _EvalNet:
+    """The network an eval step runs: `model` itself, or with bf16 a
+    bfloat16 copy that `sync()` refreshes whenever a parameter or buffer of
+    `model` changed since the last call (a `load_state_dict`, an optimizer
+    step), so that the step always runs the model's current weights."""
+
+    def __init__(self, model: torch.nn.Module, bf16: bool):
+        self.model = model
+        self.net = copy.deepcopy(model).to(torch.bfloat16) if bf16 else model
+        param = next(self.net.parameters())
+        self.dtype, self.device = param.dtype, param.device
+        self._synced = self._stamp()  # what the bf16 copy was taken from
+
+    def _stamp(self):
+        return [(t.data_ptr(), t._version) for t in _tensors(self.model)]
+
+    def sync(self) -> None:
+        if self.net is not self.model and self._stamp() != self._synced:
+            with torch.no_grad():
+                for dst, src in zip(_tensors(self.net), _tensors(self.model)):
+                    dst.copy_(src)
+            self._synced = self._stamp()
+
+    def run(self, fn: Callable[[], torch.Tensor]) -> torch.Tensor:
+        """fn() with the network in eval mode under inference_mode, after a
+        sync; the mode it found is restored."""
+        self.sync()
+        was_training = self.net.training
+        self.net.eval()
+        try:
+            with torch.inference_mode():
+                return fn()
+        finally:
+            self.net.train(was_training)
+
+
 def make_eval_step(model: torch.nn.Module, out_size: Tuple[int, int],
                    bf16: bool = False) -> Callable[[Dict], torch.Tensor]:
     """Returns `step(batch) -> [B*T, C, H, W]` float32 semantic maps at
@@ -153,32 +189,103 @@ def make_eval_step(model: torch.nn.Module, out_size: Tuple[int, int],
     runs the model's current weights. With bf16=False the forward runs in the
     weights' own type. Each call runs the network in eval mode (no dropout)
     and then restores the mode it found."""
-    net = copy.deepcopy(model).to(torch.bfloat16) if bf16 else model
-    param = next(net.parameters())
-    dtype, device = param.dtype, param.device
-
-    def stamp():
-        return [(t.data_ptr(), t._version) for t in _tensors(model)]
-
-    synced = stamp()  # what the bf16 copy was taken from
+    ev = _EvalNet(model, bf16)
 
     def eval_step(batch: Dict) -> torch.Tensor:
-        if net is not model and stamp() != synced:
-            with torch.no_grad():
-                for dst, src in zip(_tensors(net), _tensors(model)):
-                    dst.copy_(src)
-            synced[:] = stamp()
-        was_training = net.training
-        net.eval()
-        try:
-            with torch.inference_mode():
-                inputs = _model_inputs(batch, dtype, device)
-                outputs = net(*inputs)
-                vid = inputs[3]
-                return semantic_inference(
-                    outputs["pred_logits"], outputs["pred_masks"], out_size=out_size,
-                    temporal_mask=None if vid is None else vid.reshape(-1))
-        finally:
-            net.train(was_training)
+        def forward():
+            inputs = _model_inputs(batch, ev.dtype, ev.device)
+            outputs = ev.net(*inputs)
+            vid = inputs[3]
+            return semantic_inference(
+                outputs["pred_logits"], outputs["pred_masks"], out_size=out_size,
+                temporal_mask=None if vid is None else vid.reshape(-1))
+
+        return ev.run(forward)
+
+    return eval_step
+
+
+def resize_weights(n_in: int, n_out: int, dtype=np.float32) -> np.ndarray:
+    """[n_in, n_out] weights of `jax.image.resize(..., "bilinear")` along one
+    axis, in `dtype` arithmetic as XLA computes them there
+    (jax/_src/image/scale.py::compute_weight_mat, antialias on, translation
+    0): the triangle kernel at each output pixel's centre, widened by the
+    scale when shrinking, normalised per output pixel. XLA contracts the
+    sample position (i + 0.5) * inv_scale - 0.5 into one fused multiply-add,
+    rounded once, and so does this (through long double)."""
+    f = np.dtype(dtype).type
+    inv_scale = 1.0 / (n_out / n_in)
+    kernel_scale = f(max(inv_scale, 1.0))
+    centre = (np.arange(n_out, dtype=dtype) + f(0.5)).astype(np.longdouble)
+    sample = (centre * np.longdouble(f(inv_scale)) - np.longdouble(0.5)).astype(dtype)
+    x = np.abs(sample[None, :] - np.arange(n_in, dtype=dtype)[:, None]) / kernel_scale
+    w = np.maximum(f(0), f(1) - x)
+    total = w.sum(0, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
+                 w / np.where(total != 0, total, f(1)), f(0))
+    return np.where(((sample >= -0.5) & (sample <= n_in - 0.5))[None, :], w, f(0))
+
+
+def resize_frames(x: torch.Tensor, size: int) -> torch.Tensor:
+    """x [B, T, H, W, C] -> [B, T, size, size, C] as `jax.image.resize(x,
+    (B, T, size, size, C), "bilinear")` computes it: one weight matrix per
+    resized axis (an axis already at `size` is left alone), made in float32
+    arithmetic (float64 for a float64 x, as JAX with x64) and cast to x's
+    type, contracted in x's type. `F.interpolate(antialias=True)` places the
+    same window but computes its weights otherwise (its float32 frames 4.8e-3
+    from JAX's at 224 -> 384) and takes no bfloat16 on the CPU."""
+    wtype = np.float64 if x.dtype == torch.float64 else np.float32
+    for axis in (2, 3):
+        n = x.shape[axis]
+        if n == size:
+            continue
+        w = torch.from_numpy(resize_weights(n, size, wtype)).to(device=x.device, dtype=x.dtype)
+        x = torch.movedim(torch.movedim(x, axis, -1) @ w, -1, axis)
+    return x
+
+
+def make_tta_eval_step(model: torch.nn.Module, scales: Sequence[int], flip: bool,
+                       out_size: Tuple[int, int],
+                       bf16: bool = False) -> Callable[[Dict], torch.Tensor]:
+    """Multi-scale and horizontal-flip test-time augmentation
+    (combo_avs_tpu/train/train_step.py:144-195; the reference's
+    TEST.AUG.{MIN_SIZES,FLIP}). Returns `step(batch) -> [B*T, C, H, W]`:
+    for each scale (divisible by 32, the backbone's stride) and, with
+    `flip`, each of the unflipped and the flipped frames, the forward on the
+    frames and Maskiges resized to the scale (`resize_frames`, after the
+    cast to the compute type) and flipped on W, its semantic maps at
+    `out_size` (flipped back), and the mean of all of them. bf16 as in
+    `make_eval_step`."""
+    scales = [int(s) for s in scales]
+    for s in scales:
+        if s % 32:
+            raise ValueError(f"TEST.AUG.MIN_SIZES entries must be divisible by 32 (the backbone "
+                             f"stride), got {s} in {scales}")
+    if not scales:
+        raise ValueError("TEST.AUG.MIN_SIZES is empty")
+    ev = _EvalNet(model, bf16)
+
+    def eval_step(batch: Dict) -> torch.Tensor:
+        def forward():
+            images0, mel, pre0, vid = _model_inputs(batch, ev.dtype, ev.device)
+            vt = None if vid is None else vid.reshape(-1)
+            acc, n = None, 0
+            for s in scales:
+                for do_flip in ((False, True) if flip else (False,)):
+                    imgs = resize_frames(images0, s)
+                    pre = None if pre0 is None else resize_frames(pre0, s)
+                    if do_flip:
+                        imgs = imgs.flip(3)
+                        pre = None if pre is None else pre.flip(3)
+                    outputs = ev.net(imgs, mel, pre, vid)
+                    sem = semantic_inference(outputs["pred_logits"], outputs["pred_masks"],
+                                             out_size=out_size, temporal_mask=vt)
+                    if do_flip:
+                        sem = sem.flip(-1)
+                    acc = sem if acc is None else acc + sem
+                    n += 1
+            return acc / n
+
+        return ev.run(forward)
 
     return eval_step

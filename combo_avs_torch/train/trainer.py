@@ -205,11 +205,14 @@ class Trainer:
             w.write(self.storage)
         return all_results[primary]
 
-    def test(self, dataset_name: Optional[str] = None, max_videos: Optional[int] = None) -> Dict:
+    def test(self, dataset_name: Optional[str] = None, max_videos: Optional[int] = None,
+             vis_dir: Optional[str] = None) -> Dict:
         """Evaluate one dataset, or every one of DATASETS.TEST ({dataset:
         results} when there are several), one video a batch as the JAX
-        trainer does on one device; results go to
-        OUTPUT_DIR/inference/<dataset>/."""
+        trainer does on one device, with the config's precision and
+        test-time augmentation (`eval_settings`); results go to
+        OUTPUT_DIR/inference/<dataset>/, and with `vis_dir` each frame's
+        prediction to a PNG there (`save_prediction_vis`)."""
         names = [dataset_name] if dataset_name is not None else list(self.cfg.DATASETS.TEST)
         settings = eval_settings(self.cfg, self.device)
         results = {}
@@ -217,6 +220,5 @@ class Trainer:
             results[name], self.eval_timing[name] = evaluate(
                 self.model, name, batch_size=1, max_videos=max_videos,
                 output_dir=self.cfg.OUTPUT_DIR, mapper=build_mapper(self.cfg, is_train=False),
-                evaluator=build_evaluator(self.cfg, name), **settings)
+                evaluator=build_evaluator(self.cfg, name), vis_dir=vis_dir, **settings)
         return next(iter(results.values())) if len(results) == 1 else results
-

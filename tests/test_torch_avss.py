@@ -243,14 +243,17 @@ def test_pred_ms3_config_without_dataset_scores_its_split(tmp_path, monkeypatch)
 def test_pred_overrides_and_refusals(tree, tmp_path, monkeypatch):
     """`--dataset` and `--bf16` override the config's splits and precision;
     without a config pred keeps its old defaults (COMBO-R50 S4 on
-    avss4_sem_seg_test, fp32); a config with TEST.AUG.ENABLED is refused;
+    avss4_sem_seg_test, fp32); TEST.AUG.ENABLED, from the config file or
+    from trailing overrides, hands evaluate() the test-time augmentation's
+    scales and flip (overrides without a config are refused);
     TEST.EXPECTED_RESULTS is checked (`verify_results`)."""
     root, _ = tree
     catalogs.register_all(root)
-    seen = []
+    seen, ttas = [], []
 
     def fake(model, name, **kw):
         seen.append((name, kw["bf16"], type(kw.get("evaluator")).__name__))
+        ttas.append(kw.get("tta"))
         return {"sem_seg": {"mIoU": 0.25, "f_score": 0.5}}, {}
 
     monkeypatch.setattr(evaluate_mod, "evaluate", fake)
@@ -269,8 +272,16 @@ def test_pred_overrides_and_refusals(tree, tmp_path, monkeypatch):
     assert seen.pop() == ("avss4_sem_seg_test", False, "NoneType")
     aug = _tiny_config(str(tmp_path), AVSS_TEST, TINY_AVSS + ["TEST.AUG.ENABLED", "True"],
                        "aug.yaml")
-    with pytest.raises(NotImplementedError, match="TEST.AUG.ENABLED"):
-        pred.main(base + ["--config-file", aug])
+    assert ttas[-1] is None
+    pred.main(base + ["--config-file", aug])
+    assert seen.pop()[0] == "avss_sem_seg_test"
+    assert ttas.pop() == {"scales": [128, 224, 384], "flip": True}
+    pred.main(base + ["--config-file", cfg_path, "TEST.AUG.ENABLED", "True", "TEST.AUG.FLIP",
+                      "False", "TEST.AUG.MIN_SIZES", "[224]"])
+    assert seen.pop()[0] == "avss_sem_seg_test"
+    assert ttas.pop() == {"scales": [224], "flip": False}
+    with pytest.raises(SystemExit, match="need --config-file"):
+        pred.main(base + ["--device", "cpu", "TEST.AUG.ENABLED", "True"])
     assert not seen
     real_setup = config.setup_cfg
 
