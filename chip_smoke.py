@@ -1,6 +1,8 @@
 """Drive the PyTorch port's paths on one NVIDIA GPU and check them: COMBO-R50
 S4 inference, S4 training, and the S4 evaluation and training entry points,
-the evaluation with test-time augmentation and prediction dumps; the JPEG
+the evaluation with test-time augmentation and prediction dumps, data
+parallelism (ranks over gloo on the card, `train_net --num-devices` over
+NCCL); the JPEG
 codec; COMBO-R50 on AVSS (JPEG frames) (71 classes): the bf16 AMP training step and the AVSS
 training and evaluation entry points; then COMBO-PVTv2-B5 at full depth and
 width through the S4 steps, its training entry point, and the MS3
@@ -85,6 +87,20 @@ non-zero and never prints its last line:
   9. one training step at 12500 points, whose 37500 candidates the
      stratified selection does not divide, so that K6 runs once per decoder
      output;
+  9b. ddp, data parallelism on COMBO-R50 S4 at full width: (a) 2 ranks,
+     spawned processes sharing card 0 over gloo, run 3 steps of phase 6's
+     global batch (4 videos a rank, fp32, TF32 and dropout off) against one
+     process on the whole batch, each step of which starts from the ranks'
+     weights: every step's losses within 1e-3 relative, its gradient per
+     leaf within 0.15 rel-L2 and its global norm within 1e-2, the weights it
+     updates within 1e-3 of the largest weight; then 3 more steps timed
+     (each rank's s/step, gradient all-reduce ms, peak memory and kernel
+     launches by plan printed); (c) the 2 ranks evaluate 4 synthetic
+     val videos, whose merged metrics must equal one process's within 1e-6;
+     (b) `python -m combo_avs_torch.train_net --num-devices <cards> --max-iter
+     2` on the shipped R50 S4 config over NCCL (one rank on a one-card host):
+     one metrics.jsonl, an evaluation and a checkpoint, whose merged metrics
+     equal a one-process `Trainer.test` of that checkpoint exactly;
   10. COMBO-R50 AVSS: `build_model` of the shipped avs_ss/COMBO_R50_bs8_90k.yaml
      (71 classes, SOLVER.AMP.ENABLED) with seeded weights: 4 bf16 AMP steps,
      the first a warm-up, of 8 videos x 10 frames x 224^2, K = 12 slots, v2
@@ -106,15 +122,16 @@ non-zero and never prints its last line:
      pvt-train, each with a profiler window: device kernel ms a step and
      its share of the step's wall; pvt-train's peak memory;
      pvt-card-vs-cpu with the eval forward on 1 video x 5 frames x 224^2),
-     the same launch checks; phase 7 on that config (pvt-entry); then `python -m combo_avs_torch.pred --config-file
+     the same launch checks; phase 7 on that config without the resumed
+     run (pvt-entry); then `python -m combo_avs_torch.pred --config-file
      avs_ms3/Test_COMBO_PVTV2B5_bs8_20k.yaml` with the model_best.pth it wrote
      and no `--dataset`, over a synthetic MS3 test tree of 16 videos
      (pred-ms3: the config's avsms3_sem_seg_test in bf16, mIoU, F-score,
      videos/s, its timers, K1 six and K7 one launch per batch); no entry
      point may import jax, flax, yaml, cv2, tensorflow or the JAX package;
   12. the wall of each phase and the total, a JSON line of per-kernel
-     results (`ms` device ms, `call_ms` call ms; launches by path), then the
-     final JSON status line.
+     results (`ms` device ms, `call_ms` call ms; launches by path, the ddp
+     paths per rank), then the final JSON status line.
 Without a CUDA device it exits non-zero at once.
 """
 
@@ -250,9 +267,31 @@ EVAL_VIDEOS, EVAL_BATCH = 16, 4
 # the training entry points (COMBO-R50, then COMBO-PVTv2-B5): two distinct
 # batches of 8 train videos, 8 val videos (one a batch, as the trainer
 # evaluates), 2 iterations with an evaluation and a checkpoint at 2, then
-# resumed to 3
+# (R50 only) resumed to 3
 ENTRY_TRAIN_VIDEOS, ENTRY_VAL_VIDEOS = 2 * TRAIN_B, 8
 ENTRY_ITERS, ENTRY_PERIOD, ENTRY_RESUME_TO = 2, 2, 3
+# the data-parallel phase (ddp), COMBO-R50 S4 at full width: (a) the train
+# phase's global batch (IMS_PER_BATCH 8 x 5 frames x 224^2, K = 3, fp32, TF32
+# off) over DDP_RANKS ranks that share card 0 through gloo (NCCL takes one
+# rank a card), DDP_STEPS steps against the one-process steps on the whole
+# batch, each of which starts from the weights the ranks' previous step
+# left (rank 0 keeps them): AdamW moves a weight by about its rate whatever
+# its gradient's size, so a gradient entry that rounding leaves near zero
+# steps one way on the ranks and the other way in one process, and the runs
+# would drift apart. Each step's losses at the train-card-vs-cpu bounds,
+# its gradient per leaf too, its global norm within DDP_GRAD_NORM_RTOL, and
+# the weights it updates within DDP_WEIGHT_RTOL of the largest weight (two
+# opposite moves of the rate, 2e-4, fit); dropout off on both sides (each
+# rank draws its own masks, which one process cannot reproduce). Then
+# DDP_STEPS more steps are timed; (c) the ranks' evaluation of
+# DDP_VAL_VIDEOS synthetic val videos (fp32, one a batch, seeded weights)
+# against one process's, within DDP_METRIC_ATOL; (b) `train_net
+# --num-devices <the host's cards>` over NCCL on DDP_TRAIN_VIDEOS train
+# videos, 2 iterations with an evaluation and a checkpoint at 2, whose
+# merged metrics must equal the one-process `Trainer.test` of its checkpoint
+DDP_RANKS, DDP_STEPS = 2, 3
+DDP_TRAIN_VIDEOS, DDP_VAL_VIDEOS, DDP_ENTRY_ITERS = TRAIN_B, 4, 2
+DDP_GRAD_NORM_RTOL, DDP_WEIGHT_RTOL, DDP_METRIC_ATOL = 1e-2, 1e-3, 1e-6
 # the MS3 evaluation entry point: a synthetic MS3 val split, at batch 4
 PRED_VIDEOS = 16
 CONFIG_DIR = os.path.join(REPO, "combo_avs_tpu", "configs")
@@ -1481,12 +1520,12 @@ def _plans() -> dict:
 
 
 def phase_train_entry(smi: str, bare_s_per_step: float, cfg_file: str, tag: str = "train-entry",
-                      keep_dir: str = "") -> dict:
+                      keep_dir: str = "", resume: bool = True) -> dict:
     """A training entry point at full width: `train_net.main` on a shipped
     S4 config over a synthetic tree (ENTRY_TRAIN_VIDEOS train videos,
     batches of 8; ENTRY_VAL_VIDEOS val videos), ENTRY_ITERS iterations with
-    an evaluation and a step checkpoint every ENTRY_PERIOD, then `--resume
-    --max-iter ENTRY_RESUME_TO`. Every iteration is logged; the resumed run
+    an evaluation and a step checkpoint every ENTRY_PERIOD, then, with
+    `resume`, `--resume --max-iter ENTRY_RESUME_TO`. Every iteration is logged; the resumed run
     logs the iterations after ENTRY_ITERS only; the losses are finite; the step checkpoints and a
     `model_best.pth` that loads into the config's model are written, and
     metrics.json holds the mIoU; each kernel launches as often as the steps
@@ -1504,7 +1543,8 @@ def phase_train_entry(smi: str, bare_s_per_step: float, cfg_file: str, tag: str 
     from combo_avs_torch.train.checkpoint import load_reference_checkpoint
 
     train_videos, val_videos = ENTRY_TRAIN_VIDEOS, ENTRY_VAL_VIDEOS
-    iters, period, resume_to = ENTRY_ITERS, ENTRY_PERIOD, ENTRY_RESUME_TO
+    iters, period = ENTRY_ITERS, ENTRY_PERIOD
+    resume_to = ENTRY_RESUME_TO if resume else iters
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
@@ -1517,7 +1557,7 @@ def phase_train_entry(smi: str, bare_s_per_step: float, cfg_file: str, tag: str 
                 str(period), "SOLVER.CHECKPOINT_PERIOD", str(period)]
         runs = (("first", common + opts, range(1, iters + 1), iters // period),
                 ("resumed", common + ["--resume", "--max-iter", str(resume_to)] + opts,
-                 range(iters + 1, resume_to + 1), 0))
+                 range(iters + 1, resume_to + 1), 0))[:2 if resume else 1]
         rows_seen = 0
         for name, argv, want_iters, evals in runs:
             torch.cuda.synchronize()
@@ -1585,6 +1625,8 @@ def phase_train_entry(smi: str, bare_s_per_step: float, cfg_file: str, tag: str 
         if keep_dir:
             shutil.copy(os.path.join(out_dir, "model_best.pth"), keep_dir)
     torch.cuda.empty_cache()
+    if not resume:
+        out["resumed"] = {"rows": [], "launches": dict.fromkeys(out["first"]["launches"], 0)}
     steps = out["first"]["rows"] + out["resumed"]["rows"]
     s_iter = [r["s_per_iter"] for r in steps[1:]]
     d_iter = [r["data_time"] for r in steps[1:]]
@@ -2002,8 +2044,8 @@ def phase_pvt(smi: str, dev: torch.device, walls: dict) -> dict:
     avs_s4 config, seeded weights): the eval slice (pvt-slice), training
     steps (pvt-train), card against CPU on the trained weights
     (pvt-card-vs-cpu: the eval forward on 1 x 5 x 224^2, losses and
-    gradients on 1 x 5 x 128^2), `train_net` with an evaluation, a
-    checkpoint and a resume (pvt-entry), and `pred` on the MS3 config with
+    gradients on 1 x 5 x 128^2), `train_net` with an evaluation and a
+    checkpoint (pvt-entry), and `pred` on the MS3 config with
     the model_best.pth it wrote (pred-ms3)."""
     import tempfile
 
@@ -2042,8 +2084,10 @@ def phase_pvt(smi: str, dev: torch.device, walls: dict) -> dict:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as keep:
         t0 = time.perf_counter()
+        # no resumed run: the R50 train-entry phase checks resume (cut to pay
+        # for the ddp phase)
         out["entry"] = phase_train_entry(smi, out["train"]["s_per_step"], PVT_CONFIGS["s4"],
-                                         tag="pvt-entry", keep_dir=keep)
+                                         tag="pvt-entry", keep_dir=keep, resume=False)
         walls["pvt-entry"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         out["pred_ms3"] = phase_pred_ms3(smi, os.path.join(keep, "model_best.pth"))
@@ -2395,6 +2439,306 @@ def phase_avss_pred(smi: str, tmp: str, checkpoint: str) -> dict:
     return {"metrics": m, "timing": tm, "launches": counts, "wall_s": wall}
 
 
+def flat(tensors) -> torch.Tensor:
+    return torch.cat([t.detach().reshape(-1) for t in tensors])
+
+
+def ddp_step_fn(model, world, dropout_seed: int):
+    """A training step of `model` as one rank of `world` (the criterion's
+    generator seeded SEED on every rank, dropout from `dropout_seed`) and
+    its optimizer: with `keep` set, the optimizer appends to `grads` the
+    flat gradient that reached its clip (on the host) at each step."""
+    from combo_avs_torch.losses.criterion import SetCriterion, build_weight_dict
+    from combo_avs_torch.train.optim import Optimizer
+    from combo_avs_torch.train.train_step import make_train_step
+
+    class Keeping(Optimizer):
+        keep = False
+
+        def step(self):
+            if self.keep:
+                self.grads.append(flat(p.grad if p.grad is not None else torch.zeros_like(p)
+                                       for p in self.params).cpu())
+            super().step()
+
+    dev = next(model.parameters()).device
+    opt = Keeping(model)
+    opt.grads, opt.params = [], [p for g in opt.adamw.param_groups for p in g["params"]]
+    step = make_train_step(model, SetCriterion(), build_weight_dict(), opt,
+                           torch.Generator(device=dev).manual_seed(SEED),
+                           dropout_generator=torch.Generator(device=dev).manual_seed(dropout_seed),
+                           world=world)
+    return step, opt
+
+
+def ddp_rank(rank: int, d: str) -> None:
+    """One rank of the ddp phase's parts (a) and (c), spawned: card 0 shared
+    with the other rank over gloo, TF32 off, dropout off. Writes
+    d/rank<rank>.json (rank 0 also d/steps.pt: each step's gradient before
+    the clip and the weights after it)."""
+    from combo_avs_torch.data.catalogs import register_all
+    from combo_avs_torch.models import fusion
+    from combo_avs_torch.models.layers import init_weights
+    from combo_avs_torch.models.meta_arch import MaskFormer
+    from combo_avs_torch.parallel import distributed
+    from combo_avs_torch.parallel.mesh import shard_batch
+    from combo_avs_torch.train.evaluate import evaluate
+    from combo_avs_torch.utils.profiling import device_timer
+
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    fusion.DROPOUT = 0.0
+    distributed.initialize("file://" + os.path.join(d, "rendezvous"), DDP_RANKS, rank,
+                           backend="gloo", device=dev)
+    world = distributed.current()
+    model = init_weights(MaskFormer(), seed=SEED)
+    distributed.broadcast_module_(model, world)
+    batch = shard_batch(train_batch(TRAIN_B, SIZE, dev, seed=SEED), rank, DDP_RANKS)
+    step, opt = ddp_step_fn(model, world, distributed.rank_seed(SEED, rank))
+
+    # the compared steps: rank 0 keeps each step's gradient and weights
+    opt.keep = rank == 0
+    metrics, weights = [], []
+    reset_counts()
+    for _ in range(DDP_STEPS):
+        metrics.append({k: float(v) for k, v in step(batch).items()})
+        if opt.keep:
+            weights.append(flat(opt.params).cpu())
+    counts, plans = read_counts(), _plans()
+    if opt.keep:
+        torch.save({"grads": opt.grads, "weights": weights}, os.path.join(d, "steps.pt"))
+    opt.keep = False
+    del weights
+    opt.grads.clear()
+
+    # the timed steps (utils/profiling.py::device_timer, the first a warm-up)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    s_per_step = device_timer(step, batch, iters=1, repeats=DDP_STEPS - 1)
+    peak_bytes = torch.cuda.max_memory_allocated()
+    grads = [p.grad for p in opt.params if p.grad is not None]
+    grad_bytes = sum(g.numel() * g.element_size() for g in grads)
+    trainable = sum(g.numel() for g in grads)
+    allreduce_s = device_timer(distributed.all_sum_tensors_, grads, world, iters=1, repeats=2)
+    del grads, step, opt
+    model.zero_grad(set_to_none=True)
+
+    register_all(d)
+    init_weights(model, seed=SEED).eval()
+    reset_counts()
+    res, timing = evaluate(model, "avss4_sem_seg_val", batch_size=1, size=SIZE, world=world)
+    row = dict(rank=rank, world=world.size, metrics=metrics, counts=counts, plans=plans,
+               s_per_step=s_per_step, peak_bytes=peak_bytes, allreduce_s=allreduce_s,
+               grad_bytes=grad_bytes, trainable=trainable, eval_metrics=res["sem_seg"],
+               eval_videos=timing["videos"], eval_counts=read_counts(), eval_plans=_plans())
+    with open(os.path.join(d, f"rank{rank}.json"), "w") as f:
+        json.dump(row, f)
+    distributed.dist.destroy_process_group()
+
+
+def ddp_check_ranks(tag: str, tmp: str, rows: list, dev: torch.device, smi: str) -> dict:
+    """The ddp phase's parts (a) and (c) held against one process: the
+    same steps on the whole batch, each from the weights the ranks' step
+    before it left, and the same evaluation here."""
+    from combo_avs_torch.data.catalogs import register_all
+    from combo_avs_torch.models import fusion
+    from combo_avs_torch.models.layers import init_weights
+    from combo_avs_torch.models.meta_arch import MaskFormer
+    from combo_avs_torch.parallel import distributed
+    from combo_avs_torch.train.evaluate import evaluate
+
+    kept = torch.load(os.path.join(tmp, "steps.pt"))
+    saved_dropout = fusion.DROPOUT
+    fusion.DROPOUT = 0.0
+    steps = []
+    try:
+        with tf32_off():
+            model = init_weights(MaskFormer(), seed=SEED)
+            step, opt = ddp_step_fn(model, distributed.World(), distributed.rank_seed(SEED, 0))
+            opt.keep = True
+            names = {id(p): n for n, p in model.named_parameters()}
+            leaves = [names[id(p)] for p in opt.params]
+            sizes = [p.numel() for p in opt.params]
+            lr = max(g["lr"] for g in opt.adamw.param_groups)
+            batch = train_batch(TRAIN_B, SIZE, dev, seed=SEED)
+            reset_counts()
+            for k in range(DDP_STEPS):
+                if k:  # start from the ranks' weights
+                    with torch.no_grad():
+                        for p, w in zip(opt.params, torch.split(kept["weights"][k - 1].to(dev),
+                                                                sizes)):
+                            p.copy_(w.view_as(p))
+                m = {n: float(v) for n, v in step(batch).items()}
+                loss_err = max(abs(r["metrics"][k][n] - v) / max(1.0, abs(v))
+                               for r in rows for n, v in m.items())
+                gc, gr = opt.grads[k].to(dev).double(), kept["grads"][k].to(dev).double()
+                norm_ref, norm_ranks = float(gc.norm()), float(gr.norm())
+                rl2 = {leaf: float((a - b).norm()) / max(float(a.norm()), float(b.norm()),
+                                                        GRAD_FLOOR * norm_ref)
+                       for leaf, a, b in zip(leaves, torch.split(gr, sizes),
+                                             torch.split(gc, sizes))}
+                worst_leaf = max(rl2, key=rl2.get)
+                wc, wr = flat(opt.params), kept["weights"][k].to(dev)
+                dw = (wr - wc).abs()
+                moved = dw > 0.5 * lr  # apart by more than half the rate
+                steps.append({
+                    "loss_rel_err": loss_err, "worst_leaf": worst_leaf,
+                    "grad_rl2_leaf": rl2[worst_leaf],
+                    "grad_norm_rel_err": abs(norm_ranks - norm_ref) / norm_ref,
+                    "grad_norm": norm_ref,
+                    "weight_rel_err": float(dw.max() / wc.abs().max()),
+                    "weights_apart": int(moved.sum()),
+                    "apart_opposite_grads": int((moved & (torch.sign(gc) != torch.sign(gr)))
+                                                .sum()),
+                    "metrics": m})
+                del gc, gr, wc, wr, dw, moved
+            counts, plans = read_counts(), _plans()
+            del step, opt
+            model.zero_grad(set_to_none=True)
+            register_all(tmp)
+            init_weights(model, seed=SEED).eval()
+            one_eval, _ = evaluate(model, "avss4_sem_seg_val", batch_size=1, size=SIZE)
+    finally:
+        fusion.DROPOUT = saved_dropout
+    del model, kept
+    torch.cuda.empty_cache()
+
+    for r in rows:
+        log(f"[{tag}] rank {r['rank']} of {r['world']} (gloo, card 0 shared): "
+            f"{r['s_per_step'] * 1e3:.1f} ms/step (best of {DDP_STEPS - 1} after a warm-up, "
+            f"utils/profiling.py::device_timer), gradient all-reduce "
+            f"{r['allreduce_s'] * 1e3:.1f} ms a step ({r['trainable']} trainable "
+            f"parameters, {r['grad_bytes'] / 1e6:.1f} MB fp32 in buckets of at most "
+            f"{distributed.BUCKET_BYTES >> 20} MiB), max_memory_allocated {r['peak_bytes'] / 2**30:.2f} GiB; "
+            f"launches in the {DDP_STEPS} compared steps {r['counts']} by plan {r['plans']} "
+            f"on {smi}")
+    log(f"[{tag}] one process, the whole batch, each step from the ranks' weights: launches "
+        f"{counts} by plan {plans}")
+    for k, st in enumerate(steps):
+        log(f"[{tag}] step {k + 1}, {DDP_RANKS} ranks against one process: worst loss rel err "
+            f"{st['loss_rel_err']:.3e} (tol {LOSS_RTOL_CPU}); gradient worst leaf "
+            f"{st['worst_leaf']} rel-L2 {st['grad_rl2_leaf']:.3e} (tol {GRAD_RL2_LEAF}), global "
+            f"norm {st['grad_norm']:.6e} rel err {st['grad_norm_rel_err']:.3e} (tol "
+            f"{DDP_GRAD_NORM_RTOL}); updated weights max diff over max weight "
+            f"{st['weight_rel_err']:.3e} (tol {DDP_WEIGHT_RTOL}), {st['weights_apart']} "
+            f"entries apart by more than half the rate {lr:.1e}, of which "
+            f"{st['apart_opposite_grads']} have gradients of opposite signs; TF32 off, "
+            f"dropout off")
+    bad = [k + 1 for k, st in enumerate(steps)
+           if st["loss_rel_err"] > LOSS_RTOL_CPU or st["grad_rl2_leaf"] > GRAD_RL2_LEAF
+           or st["grad_norm_rel_err"] > DDP_GRAD_NORM_RTOL
+           or st["weight_rel_err"] > DDP_WEIGHT_RTOL]
+    if bad:
+        raise AssertionError(f"[{tag}] the ranks' steps {bad} disagree with one process's")
+    steps_want = {k: v * DDP_STEPS for k, v in TRAIN_LAUNCHES.items()}
+    eval_want = dict.fromkeys(TRAIN_LAUNCHES, 0)
+    for r in rows:
+        eval_want.update(k1=6 * r["eval_videos"], k7=r["eval_videos"])
+        if r["counts"] != steps_want or r["eval_counts"] != eval_want:
+            raise AssertionError(f"[{tag}] rank {r['rank']}: launches {r['counts']} in "
+                                 f"{DDP_STEPS} steps and {r['eval_counts']} in the "
+                                 f"evaluation, expected {steps_want} and {eval_want}")
+    # (c) the merged evaluation
+    eval_err = max(abs(r["eval_metrics"][k] - v) for r in rows
+                   for k, v in one_eval["sem_seg"].items())
+    log(f"[{tag}] evaluation of {DDP_VAL_VIDEOS} val videos on {DDP_RANKS} ranks "
+        f"({[r['eval_videos'] for r in rows]} videos each), merged {rows[0]['eval_metrics']}, "
+        f"one process {one_eval['sem_seg']}: max diff {eval_err:.1e} (tol {DDP_METRIC_ATOL}); "
+        f"launches a rank {[r['eval_counts'] for r in rows]}")
+    if eval_err > DDP_METRIC_ATOL or any(set(r["eval_metrics"]) != set(one_eval["sem_seg"])
+                                         for r in rows):
+        raise AssertionError(f"[{tag}] the ranks' evaluation differs from one process's")
+    return {"steps": steps, "eval_max_diff": eval_err}
+
+
+def phase_ddp(smi: str, dev: torch.device) -> dict:
+    """Data parallelism at full width (see DDP_RANKS): (a) and (c) in
+    DDP_RANKS spawned ranks on card 0 over gloo, held against this process;
+    (b) `python -m combo_avs_torch.train_net --num-devices <cards>` over NCCL
+    (NCCL_DEBUG=INFO must show its communicator), held against a one-process
+    `Trainer.test` of its checkpoint."""
+    import tempfile
+
+    from combo_avs_torch import config
+    from combo_avs_torch.data.catalogs import register_all
+    from combo_avs_torch.data.synth import make_s4
+    from combo_avs_torch.train.trainer import Trainer
+
+    tag = "ddp"
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        make_s4(tmp, DDP_TRAIN_VIDEOS, DDP_VAL_VIDEOS, size=SIZE)
+        t0 = time.perf_counter()
+        torch.multiprocessing.start_processes(ddp_rank, args=(tmp,), nprocs=DDP_RANKS,
+                                              join=True, start_method="spawn")
+        out["ranks_wall_s"] = time.perf_counter() - t0
+        rows = []
+        for r in range(DDP_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                rows.append(json.load(f))
+
+        # (b) train_net over NCCL, one rank a card, in a process of its own,
+        # beside this process's reference steps and checks
+        cards = torch.cuda.device_count()
+        out_dir = os.path.join(tmp, "entry")
+        cmd = [sys.executable, "-m", "combo_avs_torch.train_net", "--config-file", R50_CONFIG,
+               "--datasets-root", tmp, "--num-devices", str(cards), "--max-iter",
+               str(DDP_ENTRY_ITERS), "--log-every", "1", "OUTPUT_DIR", out_dir,
+               "TEST.EVAL_PERIOD", str(DDP_ENTRY_ITERS), "SOLVER.CHECKPOINT_PERIOD",
+               str(DDP_ENTRY_ITERS)]
+        env = dict(os.environ, NCCL_DEBUG="INFO",
+                   PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        t_entry = time.perf_counter()
+        entry = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+        try:
+            checked = ddp_check_ranks(tag, tmp, rows, dev, smi)
+            stdout, stderr = entry.communicate(timeout=600)
+        finally:
+            if entry.poll() is None:
+                entry.kill()
+                entry.wait()
+        entry_wall = time.perf_counter() - t_entry
+        if entry.returncode:
+            raise AssertionError(f"[{tag}] train_net --num-devices {cards} exited "
+                                 f"{entry.returncode}:\n{stderr[-3000:]}")
+        nccl = [line for line in (stdout + stderr).splitlines() if "NCCL INFO" in line]
+        shown = [line for line in nccl if "Init COMPLETE" in line or "nranks" in line] or nccl
+        if not nccl:
+            raise AssertionError(f"[{tag}] train_net --num-devices {cards}: no NCCL "
+                                 "communicator in its output")
+        with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+            entry_rows = [json.loads(line) for line in f]
+        iters = [r["iter"] for r in entry_rows if "total_loss" in r]
+        evals = [r for r in entry_rows if "mIoU" in r]
+        names = set(os.listdir(out_dir))
+        if (iters != list(range(1, DDP_ENTRY_ITERS + 1)) or len(evals) != 1
+                or not {f"step_{DDP_ENTRY_ITERS}", "model_best.pth"} <= names):
+            raise AssertionError(f"[{tag}] train_net --num-devices {cards}: iterations {iters}, "
+                                 f"evaluations {evals}, files {sorted(names)}")
+        register_all(tmp)
+        trainer = Trainer(config.setup_cfg(R50_CONFIG, ["OUTPUT_DIR", out_dir]))
+        trainer.resume_or_load(resume=True)
+        if trainer.world.size != 1 or trainer.start_iter != DDP_ENTRY_ITERS:
+            raise AssertionError(f"[{tag}] the checkpoint resumed at {trainer.start_iter}")
+        one = trainer.test()["sem_seg"]
+        del trainer
+        torch.cuda.empty_cache()
+        merged = {k: evals[0][k] for k in one}
+        log(f"[{tag}] train_net --num-devices {cards} (NCCL, {len(nccl)} NCCL INFO lines, e.g. "
+            f"{shown[-1].strip()[:160]!r}): {DDP_ENTRY_ITERS} iterations, losses "
+            f"{[round(r['total_loss'], 4) for r in entry_rows if 'total_loss' in r]}, s/iter "
+            f"{[r['s_per_iter'] for r in entry_rows if 'total_loss' in r]}, merged "
+            f"eval {merged}; one-process Trainer.test of step_{DDP_ENTRY_ITERS}: {one}; "
+            f"{entry_wall:.1f} s wall")
+        if merged != one:
+            raise AssertionError(f"[{tag}] train_net's merged metrics {merged} differ from the "
+                                 f"one-process evaluation {one}")
+    out.update(checked, rows=rows, entry_wall_s=entry_wall, entry_cards=cards,
+               entry_metrics=merged)
+    return out
+
+
 def phase_avss(smi: str, dev: torch.device, walls: dict) -> dict:
     """COMBO-R50 on AVSS at full width: `build_model` of the shipped
     avs_ss/COMBO_R50_bs8_90k.yaml (71 classes) with seeded weights on the
@@ -2518,6 +2862,7 @@ def main(argv=None) -> int:
     tf = timed("train-k6", phase_train_fallback, model)
     del model, twin
     torch.cuda.empty_cache()
+    ddp = timed("ddp", phase_ddp, smi, dev)
     avss = phase_avss(smi, dev, walls)
     pvt = phase_pvt(smi, dev, walls)
 
@@ -2529,6 +2874,15 @@ def main(argv=None) -> int:
              "pvt_pred_ms3": pvt["pred_ms3"]["launches"], "avss_train": avss["train"]["launches"],
              "avss_train_entry": avss["entry"]["launches"], "avss_pred": avss["pred"]["launches"],
              "tta_pred": tta["launches"]}
+    for r in ddp["rows"]:
+        paths[f"ddp_train_rank{r['rank']}"] = r["counts"]
+        paths[f"ddp_eval_rank{r['rank']}"] = r["eval_counts"]
+    ddp_plans = {f"ddp_{part}": [r[key] for r in ddp["rows"]]
+                 for part, key in (("train", "plans"), ("eval", "eval_plans"))}
+
+    def ddp_by_plan(k):
+        """Kernel k's launches by plan on each rank of the ddp paths."""
+        return {path: [plans[k] for plans in ranks] for path, ranks in ddp_plans.items()}
 
     def by_path(k):
         return {name: counts[k] for name, counts in paths.items()}
@@ -2558,11 +2912,13 @@ def main(argv=None) -> int:
                                   "bound_ms", "bound_by")},
                      plan_tta384_bf16=k1["tta384_bf16"]["chosen"],
                      plans_ms={name: {kn: v["ms"] for kn, v in k1[name]["plans"].items()}
-                               for name in ("fp32", "bf16", "train_fp32", "train_bf16")}),
+                               for name in ("fp32", "bf16", "train_fp32", "train_bf16")},
+                     ddp_launches_by_plan=ddp_by_plan("k1")),
         kernel_entry("ms_deform_attn_bwd", "combo_avs_torch/csrc/ms_deform_attn_bwd.cu",
                      REPLACES["k2"], {name: n for name, n in by_path("k2").items()
                                       if not name.startswith("avss")}, k2["level_slice"],
                      shape="value [40,1029,8,32] fp32", plan="level_slice",
+                     ddp_launches_by_plan=ddp_by_plan("k2"),
                      **{f"global_{k}": k2["global"][k] for k in ("max_abs_err", "ms", "call_ms",
                                                                  "host_us", "device_source")}),
         kernel_entry("ms_deform_attn_bwd_bf16", "combo_avs_torch/csrc/ms_deform_attn_bwd.cu",
@@ -2585,6 +2941,7 @@ def main(argv=None) -> int:
                      REPLACES["k4"], by_path("k4_dimg"), ps["dimg"],
                      shape="dout [120,12544,1] into [120,56,56,1]", plan="staged",
                      train_launches_by_plan=tr["dimg_plans"],
+                     ddp_launches_by_plan=ddp_by_plan("k4_dimg"),
                      plan_detail=ps["dimg"]["plan"],
                      **{f"global_{k}": ps["dimg"]["global_plan"][k]
                         for k in ("max_abs_err", "ms", "call_ms", "host_us", "device_source")},
@@ -2596,6 +2953,7 @@ def main(argv=None) -> int:
                      by_path("k7"), k7["fp32"],
                      shape="mask [20,100,56,56] fp32 -> [20,2,224,224]", plan="patch",
                      plan_detail=k7["fp32"]["plan"], eval_launches_by_plan=sl["k7_plans"],
+                     ddp_launches_by_plan=ddp_by_plan("k7"),
                      resize_ms=k7["fp32"]["resize_ms"],
                      resize_call_ms=k7["fp32"]["resize_call_ms"],
                      max_abs_err_bf16=k7["bf16"]["max_abs_err"], ms_bf16=k7["bf16"]["ms"],
@@ -2625,7 +2983,16 @@ def main(argv=None) -> int:
                     "eval_entry": {k: {"metrics": v["metrics"], "timing": v["timing"]}
                                    for k, v in ee.items()},
                     "jpeg": jp, "tta": {k: v for k, v in tta.items() if k != "launches"},
-                    "avss": avss["summary"], "pvt": pvt["summary"], "walls_s": walls}))
+                    "avss": avss["summary"], "pvt": pvt["summary"],
+                    "ddp": {"ranks": [{k: r[k] for k in ("rank", "world", "s_per_step",
+                                                         "allreduce_s", "grad_bytes", "trainable",
+                                                         "peak_bytes", "metrics",
+                                                         "eval_metrics")}
+                                      for r in ddp["rows"]],
+                            **{k: ddp[k] for k in ("steps", "eval_max_diff",
+                                                   "ranks_wall_s", "entry_wall_s", "entry_cards",
+                                                   "entry_metrics")}},
+                    "walls_s": walls}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

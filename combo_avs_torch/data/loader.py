@@ -20,6 +20,7 @@ from typing import Callable, Dict, Iterator, List, Tuple
 
 import numpy as np
 
+from combo_avs_torch.parallel.mesh import per_rank_batch
 
 NUM_WORKERS = 4
 
@@ -36,12 +37,14 @@ class TrainLoader:
     RandomState(seed), a bucket drawn in proportion to its size, then a
     batch from that bucket's stream of permutations (no video twice within
     a permutation); with `num_shards` processes each takes its slice of the
-    global batch. The mapper is called as `mapper(record, n)`, where n
-    counts the loader's calls (batch by batch, slot by slot): the draws of a
-    video's transform hang on its place in the stream, not on which worker
-    thread gets to it first, so any `num_workers` gives the same batches
-    (the JAX mapper counts calls as they start, which fixes the order only
-    with one worker).
+    global batch (`batch_size` is the global batch, which the shards must
+    divide). The mapper is called as `mapper(record, n)`, where n is the
+    video's place in the global stream (batch by batch, slot by slot): the
+    draws of a video's transform hang on that place, not on which worker
+    thread gets to it first or which shard maps it, so any `num_workers`
+    gives the same batches and shard r's batch is rows r*b .. (r+1)*b - 1
+    of the one-shard loader's (the JAX mapper counts calls as they start,
+    which fixes the order only with one worker).
 
     A failure in the mapper is raised by the next `next()`. `close()` stops
     the prefetch thread and shuts the worker pool down."""
@@ -54,7 +57,10 @@ class TrainLoader:
         self.mapper = mapper
         self.batch_size = batch_size
         self.rng = np.random.RandomState(seed)
-        self.shard_index, self.num_shards = shard_index, num_shards
+        self.per_shard = per_rank_batch(batch_size, num_shards)  # refuses an uneven split
+        if not 0 <= shard_index < num_shards:
+            raise ValueError(f"shard {shard_index} of {num_shards}")
+        self.shard_index = shard_index
         self.buckets: Dict[int, List[dict]] = {}
         for r in records:
             self.buckets.setdefault(r["num_frames"], []).append(r)
@@ -64,10 +70,15 @@ class TrainLoader:
         self._thread = threading.Thread(target=self._worker, daemon=True)
         self._thread.start()
 
-    def _indices(self) -> Iterator[List[dict]]:
+    def _indices(self) -> Iterator[Tuple[List[dict], int]]:
+        """(this shard's records of each global batch, the global stream
+        place of the first of them)."""
         streams = {k: iter(()) for k in self.buckets}
         sizes = {k: len(v) for k, v in self.buckets.items()}
         total = sum(sizes.values())
+        per = self.per_shard
+        lo = self.shard_index * per  # this shard's slots of a batch
+        start = 0  # the global stream place of each batch's first video
         while True:
             r = self.rng.rand() * total
             acc = 0
@@ -84,8 +95,8 @@ class TrainLoader:
                         break
                 else:
                     streams[k] = iter(self.rng.permutation(len(bucket)))
-            per = self.batch_size // self.num_shards
-            yield [bucket[i] for i in idx[self.shard_index * per:(self.shard_index + 1) * per]]
+            yield [bucket[i] for i in idx[lo:lo + per]], start + lo
+            start += self.batch_size
 
     def _put(self, item) -> bool:
         while not self._stop.is_set():
@@ -97,13 +108,11 @@ class TrainLoader:
         return False
 
     def _worker(self) -> None:
-        n = 0
         try:
-            for recs in self._indices():
+            for recs, first in self._indices():
                 if self._stop.is_set():
                     return
-                numbers = range(n, n + len(recs))
-                n += len(recs)
+                numbers = range(first, first + len(recs))
                 samples = list(self._pool.map(self.mapper, recs, numbers))
                 if not self._put(_stack_batch(samples)):
                     return

@@ -11,6 +11,19 @@ The random draws (the matcher's shared points, the 3x oversampled candidate
 points and the random tail of PointRend's selection) come from an explicit
 `torch.Generator`, or are injected per layer, so that tests can feed both
 this criterion and the JAX one the same numbers.
+
+Data parallel (`parallel/distributed.py::World`, more than one rank): the
+JAX package computes the loss on the global batch, so its normalizers are
+global (combo_avs_tpu/losses/criterion.py:15-16,179,242,262). Here each
+rank holds its rows of that batch, and the three normalizers (`num_masks`,
+the class loss's weight sum, the cosine loss's video count) are summed over
+the ranks in one small all-reduce of the rank's local values. Each rank's
+losses are then its share of the global losses: the ranks' losses, and
+their gradients, SUM to the global ones, with no division by the number of
+ranks. The draws are made at the global batch's shape from the generator
+every rank seeds alike, and each rank keeps its rows, so the points do not
+depend on the number of ranks. With one rank no sum runs and the draws are
+the batch's own.
 """
 
 from __future__ import annotations
@@ -23,6 +36,7 @@ import torch.nn.functional as F
 from combo_avs_torch.losses.matcher import HungarianMatcher
 from combo_avs_torch.ops.gather_cuda import gather_points, gather_points_plain
 from combo_avs_torch.ops.grid_sample import point_sample
+from combo_avs_torch.parallel import distributed
 
 # Chunk width of the stratified uncertain-point selection (the JAX package's
 # _STRAT_CHUNK): each chunk of candidates keeps a fixed quota of its most
@@ -124,8 +138,29 @@ class SetCriterion:
         return tuple(torch.rand(s, generator=generator, device=generator.device)
                      for s in shapes)
 
+    def draw_shard(self, generator: torch.Generator, N: int, K: int,
+                   world: distributed.World) -> Draws:
+        """A rank's rows of one layer's draws at the global batch's shape
+        (`world.size` ranks of N frames each): the frames r*N .. (r+1)*N - 1
+        and their masks."""
+        pts, cand, tail = self.draw(generator, N * world.size, K)
+        f, m = slice(world.rank * N, (world.rank + 1) * N), \
+            slice(world.rank * N * K, (world.rank + 1) * N * K)
+        return pts[f].clone(), cand[m].clone(), tail[m].clone()
+
+    def class_weight_sum(self, valid: torch.Tensor, frame_weight: torch.Tensor,
+                         num_queries: int) -> torch.Tensor:
+        """The sum of the class loss's weights, in float64: each frame's
+        weight times eos_coef for each of its queries left unmatched and 1
+        for each matched one (one per valid slot). It does not depend on
+        which queries the matching picks, so one value serves every decoder
+        output."""
+        n_valid = valid.sum(1).to(torch.float64)
+        per_frame = self.eos_coef * (num_queries - n_valid) + n_valid
+        return (frame_weight.to(torch.float64) * per_frame).sum()
+
     # ------------------------------------------------------------------
-    def _loss_labels(self, pred_logits, labels, valid, assign, frame_weight):
+    def _loss_labels(self, pred_logits, labels, valid, assign, frame_weight, weight_sum=None):
         N, Q, _ = pred_logits.shape
         # an invalid slot writes to the extra column Q, which is then dropped
         safe_assign = torch.where(valid, assign, torch.full_like(assign, Q))
@@ -138,7 +173,8 @@ class SetCriterion:
         # no-object targets weigh eos_coef, in the loss's own float type
         empty = torch.ones_like(nll).masked_fill(target == self.num_classes, self.eos_coef)
         w = empty * frame_weight[:, None]
-        return (nll * w).sum() / w.sum().clamp(min=1e-6)
+        total = w.sum() if weight_sum is None else weight_sum.to(w.dtype)
+        return (nll * w).sum() / total.clamp(min=1e-6)
 
     # ------------------------------------------------------------------
     def _loss_masks(self, pred_masks, tgt_masks, valid, assign, num_masks, candidates, tail):
@@ -167,9 +203,10 @@ class SetCriterion:
         return loss_mask, loss_dice
 
     # ------------------------------------------------------------------
-    def _loss_cosine(self, middle: torch.Tensor) -> torch.Tensor:
+    def _loss_cosine(self, middle: torch.Tensor, n_videos=None) -> torch.Tensor:
         """middle [N, Q, HW]: adjacent-frame cosine distance d of each video's
-        mask predictions, weighted by exp(-d)."""
+        mask predictions, weighted by exp(-d), averaged over `n_videos`
+        (default: this batch's)."""
         n_frame = self.cosine_n_frame
         bs = middle.shape[0] // n_frame
         m = _upcast32(middle.reshape(bs, n_frame, -1))
@@ -180,6 +217,7 @@ class SetCriterion:
                      * torch.linalg.vector_norm(b, dim=-1)).clamp(min=1e-8)
             d = 1.0 - (a * b).sum(-1) / denom
             total = total + d * torch.exp(-d)
+        bs = bs if n_videos is None else n_videos.to(total.dtype)
         return total.sum() / bs / (n_frame - 1)
 
     # ------------------------------------------------------------------
@@ -190,19 +228,34 @@ class SetCriterion:
         frame_weight: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
         draws: Optional[Sequence[Draws]] = None,
+        world: Optional[distributed.World] = None,
     ) -> Dict[str, torch.Tensor]:
         """outputs: the model's output dict; targets: labels [N, K] int,
         masks [N, K, H, W], valid [N, K] bool; frame_weight [N] (None = all
         ones). The draws come from `generator` unless `draws` gives them, one
         (matcher points, candidates, tail) per layer: the final prediction
-        first, then the aux layers in order."""
+        first, then the aux layers in order; injected draws are this rank's
+        rows. `world` (default: one rank) is the ranks whose batches make the
+        global one; with more than one, the losses are this rank's shares of
+        the global losses (the module docstring)."""
+        world = world or distributed.World()
         labels, tgt_masks = targets["labels"], targets["masks"]
         N, K = labels.shape
         device = outputs["pred_logits"].device
         if frame_weight is None:
             frame_weight = torch.ones((N,), dtype=torch.float32, device=device)
         valid = targets["valid"] & (frame_weight[:, None] > 0)
-        num_masks = valid.sum().to(torch.float32).clamp(min=1.0)
+        weight_sum = n_videos = None
+        if world.size == 1:
+            num_masks = valid.sum().to(torch.float32).clamp(min=1.0)
+        else:
+            Q = outputs["pred_logits"].shape[1]
+            local = torch.stack([valid.sum().to(torch.float64),
+                                 self.class_weight_sum(valid, frame_weight, Q),
+                                 torch.tensor(float(N // self.cosine_n_frame),
+                                              dtype=torch.float64, device=device)])
+            total_masks, weight_sum, n_videos = world.all_sum_(local)
+            num_masks = total_masks.to(torch.float32).clamp(min=1.0)
 
         layers = [(outputs["pred_logits"], outputs["pred_masks"], "")] + [
             (a["pred_logits"], a["pred_masks"], f"_{i}")
@@ -210,7 +263,7 @@ class SetCriterion:
         if draws is None:
             if generator is None:
                 raise ValueError("SetCriterion needs a generator or injected draws")
-            draws = [self.draw(generator, N, K) for _ in layers]
+            draws = [self.draw_shard(generator, N, K, world) for _ in layers]
         if len(draws) != len(layers):
             raise ValueError(f"{len(draws)} draws for {len(layers)} layers")
 
@@ -220,14 +273,14 @@ class SetCriterion:
         losses: Dict[str, torch.Tensor] = {}
         for (logits, masks, suffix), (_, candidates, tail), assign in zip(layers, draws, assigns):
             losses[f"loss_ce{suffix}"] = self._loss_labels(logits, labels, valid, assign,
-                                                           frame_weight)
+                                                           frame_weight, weight_sum)
             lm, ld = self._loss_masks(masks, tgt_masks, valid, assign, num_masks,
                                       candidates, tail)
             losses[f"loss_mask{suffix}"] = lm
             losses[f"loss_dice{suffix}"] = ld
 
         for i, middle in enumerate(outputs.get("middles_attn_mask", [])):
-            losses[f"loss_cosine_{i}"] = self._loss_cosine(middle)
+            losses[f"loss_cosine_{i}"] = self._loss_cosine(middle, n_videos)
         return losses
 
 

@@ -24,9 +24,13 @@ overrides are taken.
         [--config-file combo_avs_tpu/configs/avs_ss/Test_COMBO_R50_bs8_90k.yaml] \
         [--dataset avss4_sem_seg_test | avsms3_sem_seg_test | avss_sem_seg_test | ...] \
         [--max-videos N] [--batch-size 4] [--bf16] [--output-dir DIR] [--device cpu] \
-        [--save-vis] [KEY VALUE ...]
+        [--save-vis] [--num-devices N] [KEY VALUE ...]
 
-It runs on the current CUDA device unless `--device` names another. Trees
+It runs on the current CUDA device unless `--device` names another. With
+`--num-devices N` it runs N ranks on this machine (rank i on `cuda:i`, or
+all on the CPU with `--device cpu`), each scoring every N-th video of each
+split; the metrics are merged over the ranks and rank 0 prints them and
+writes the results (`train/evaluate.py`). Trees
 to try it on: `python -m combo_avs_torch.data.synth --root DIR [--ms3-val N]
 [--avss-test N]` (their splits are `avss4_sem_seg_val`, `avsms3_sem_seg_val`
 and `avss_sem_seg_test`).
@@ -58,6 +62,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--device", default=None, help="default: the current CUDA device")
     p.add_argument("--save-vis", action="store_true",
                    help="write coloured prediction PNGs to <out>/vis/<dataset>")
+    p.add_argument("--num-devices", type=int, default=None,
+                   help="ranks on this machine, one per device")
     p.add_argument("opts", nargs=argparse.REMAINDER, default=[],
                    help="config overrides, KEY VALUE pairs (needs --config-file)")
     return p.parse_args(argv)
@@ -65,8 +71,47 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> dict:
     """Evaluate; returns the results of the one split scored ({"sem_seg":
-    metrics}), or {split: results} when several were."""
+    metrics}), or {split: results} when several were (rank 0's, merged,
+    with --num-devices)."""
     args = parse_args(argv)
+    if args.num_devices is None:
+        return run(args)
+    import importlib
+
+    from combo_avs_torch.parallel import distributed
+
+    if args.opts and not args.config_file:
+        raise SystemExit(f"config overrides {args.opts} need --config-file")
+    # spawned ranks find `run_rank` by its module's name, also when this file runs as __main__
+    fn = importlib.import_module("combo_avs_torch.pred").run_rank
+    return distributed.launch(fn, args.num_devices, (args,),
+                              device_type="cpu" if _on_cpu(args) else "cuda",
+                              rendezvous_dir=args.output_dir or None)
+
+
+def _on_cpu(args) -> bool:
+    return args.device is not None and args.device.split(":")[0] == "cpu"
+
+
+def run_rank(args) -> dict:
+    """One rank of `--num-devices`, on the CPU or on the CUDA device the
+    launcher made current."""
+    import torch
+
+    from combo_avs_torch.parallel import distributed
+
+    if not distributed.current().main:
+        logging.getLogger("COMBO").setLevel(logging.WARNING)
+    if not _on_cpu(args):
+        args.device = f"cuda:{torch.cuda.current_device()}"
+    return run(args)
+
+
+def run(args) -> dict:
+    """`main` in this process, as one rank of whatever group it joined."""
+    from combo_avs_torch.parallel import distributed
+
+    main_rank = distributed.current().main
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
     from combo_avs_torch.data.catalogs import DatasetCatalog, register_all
     from combo_avs_torch.models.meta_arch import MaskFormer, build_model
@@ -106,7 +151,8 @@ def main(argv=None) -> dict:
         results[name], _ = evaluate(model.eval(), name, batch_size=args.batch_size,
                                     max_videos=args.max_videos, output_dir=args.output_dir,
                                     vis_dir=vis_dir, **settings, **per_split)
-        print(name, results[name]["sem_seg"], flush=True)
+        if main_rank:
+            print(name, results[name]["sem_seg"], flush=True)
     single = len(results) == 1
     if cfg is not None:
         # tasks key into the one split's results, or into {split: metrics}

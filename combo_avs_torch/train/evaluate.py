@@ -28,6 +28,12 @@ torch only, on one thread, and never touch CUDA. A worker that returns
 nothing within 600 s (a lock held across the fork) is
 killed with the rest of the pool before the error is raised, so no child
 outlives a failed evaluation.
+
+With several ranks (`parallel/distributed.py`) each rank evaluates every
+`world`-th record (`parallel/mesh.py::shard_records`), the evaluators'
+sums are merged over the ranks before the metrics are taken, so every rank
+returns the whole split's metrics, and only rank 0 writes the results file;
+each rank writes its own videos' prediction PNGs.
 """
 
 from __future__ import annotations
@@ -50,6 +56,8 @@ from combo_avs_torch.evaluation.evaluator import (SemSegEvaluator, SemSegEvaluat
                                                   eval_video_partial, eval_video_partial_ss)
 from combo_avs_torch.evaluation.postprocess import crop_and_resize_gt, sem_seg_postprocess
 from combo_avs_torch.evaluation.visual import binary_color_map, save_mask_png, v2_pallete
+from combo_avs_torch.parallel import distributed
+from combo_avs_torch.parallel.mesh import shard_records
 from combo_avs_torch.train.train_step import make_eval_step, make_tta_eval_step
 
 logger = logging.getLogger("COMBO")
@@ -145,7 +153,8 @@ def evaluate(model: torch.nn.Module, dataset_name: str, batch_size: int = 1,
              max_videos: Optional[int] = None, bf16: bool = False, size: int = 224,
              output_dir: str = "", mapper: Optional[Callable[[Dict], Dict]] = None,
              evaluator=None, tta: Optional[Dict] = None,
-             vis_dir: Optional[str] = None) -> Tuple[Dict, Dict]:
+             vis_dir: Optional[str] = None,
+             world: Optional[distributed.World] = None) -> Tuple[Dict, Dict]:
     """Evaluate `model` (on its own device) over the registered dataset.
     Returns ({"sem_seg": metrics}, timing): metrics "mIoU" and "f_score"
     (AVSS adds "mIoU_noBg" and "f_score_noBg"), timing the wall, data,
@@ -156,11 +165,16 @@ def evaluate(model: torch.nn.Module, dataset_name: str, batch_size: int = 1,
     (`default_evaluator`). `tta` ({"scales": [...], "flip": bool}) runs
     `make_tta_eval_step`; `vis_dir` receives one `<video>_<t>.png` per
     scored frame (`save_prediction_vis`) and turns the `COMBO_EVAL_PROCS`
-    pool off, as in the JAX package."""
+    pool off, as in the JAX package. `world` (default:
+    `distributed.current()`): this rank scores its shard of the records and
+    the metrics are merged over the ranks; the timing is this rank's, with
+    the number of ranks."""
+    world = world or distributed.current()
     evaluator = evaluator if evaluator is not None else default_evaluator(dataset_name)
     records = DatasetCatalog[dataset_name]()
     if max_videos:
         records = records[:max_videos]
+    records = shard_records(records, world.rank, world.size)
     semantic = isinstance(evaluator, SemSegEvaluatorSS)
     if mapper is None:
         mapper = (AVSSemanticDatasetMapper(size_divisibility=size, binary_gt=False,
@@ -172,7 +186,6 @@ def evaluate(model: torch.nn.Module, dataset_name: str, batch_size: int = 1,
     else:
         step = make_eval_step(model, out_size=(size, size), bf16=bf16)
     device = next(model.parameters()).device
-    n_devices = torch.cuda.device_count() if device.type == "cuda" else 1
     if vis_dir:
         os.makedirs(vis_dir, exist_ok=True)
 
@@ -248,15 +261,15 @@ def evaluate(model: torch.nn.Module, dataset_name: str, batch_size: int = 1,
     for what, secs in (("inference", total), ("inference pure compute", t_compute),
                        ("eval (postprocess+metrics)", t_eval)):
         logger.info("Total %s time: %.6f s (%.6f s / iter per device, on %d devices)",
-                    what, secs, secs / n_iter, n_devices)
-    results = evaluator.evaluate()
-    if output_dir:
+                    what, secs, secs / n_iter, world.size)
+    results = distributed.merge_evaluator_across_hosts(evaluator, world).evaluate()
+    if output_dir and world.main:
         inference_dir = os.path.join(output_dir, "inference", dataset_name)
         os.makedirs(inference_dir, exist_ok=True)
         torch.save(results["sem_seg"], os.path.join(inference_dir, "sem_seg_evaluation.pth"))
         print_csv_format(results)
     timing = {"total_s": total, "data_s": t_data, "compute_s": t_compute, "eval_s": t_eval,
-              "videos": n_done, "frames": n_frames}
+              "videos": n_done, "frames": n_frames, "ranks": world.size}
     return results, timing
 
 

@@ -7,11 +7,20 @@ Port of `combo_avs_tpu/train/train_step.py` (`make_train_step`,
 forward, criterion, backward and optimizer update in one call; the eval
 steps run under `torch.inference_mode()`. Each step sets the model's mode
 for its call and restores the mode it found.
+
+Data parallel (more than one rank in `parallel/distributed.py::World`):
+each rank's losses are its share of the global batch's (the criterion's
+global normalizers), so after the backward the ranks' gradients are SUMMED
+(`all_sum_tensors_`, a few flat buckets) before the optimizer's clip: the
+clip sees the global batch's gradient, as the JAX step's psum gives it. XLA's
+psum is the model here rather than DistributedDataParallel, so the fp32 and
+the bf16 AMP step (`torch.func.functional_call`) take the same path.
 """
 
 from __future__ import annotations
 
 import copy
+import functools
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -20,6 +29,7 @@ from torch.func import functional_call
 
 from combo_avs_torch.losses.criterion import Draws, SetCriterion, total_loss
 from combo_avs_torch.models.meta_arch import semantic_inference
+from combo_avs_torch.parallel import distributed
 from combo_avs_torch.train.optim import Optimizer
 
 
@@ -81,22 +91,26 @@ def amp_forward(model: torch.nn.Module, inputs, generator: torch.Generator):
 
 def compute_losses(model: torch.nn.Module, criterion: SetCriterion, batch: Dict,
                    generator: torch.Generator, draws: Optional[Sequence[Draws]] = None,
-                   amp: bool = False) -> Dict[str, torch.Tensor]:
+                   amp: bool = False, dropout_generator: Optional[torch.Generator] = None
+                   ) -> Dict[str, torch.Tensor]:
     """The training forward: model outputs on the batch, then every named
     loss. `gt_temporal_mask` [B, T] becomes the per-frame weight (S4: the
     first frame of each video); `vid_temporal_mask` [B, T], when the batch
     has one, gates each frame's audio feature. Dropout (in training mode) and the
     criterion's draws come from `generator`, in that order, unless `draws`
-    are given. With `amp` the forward runs in bfloat16 (`amp_forward`) on
+    are given; with `dropout_generator` dropout draws from it instead. With `amp` the forward runs in bfloat16 (`amp_forward`) on
     inputs cast to bfloat16 on the device, and the losses in float32. The
-    model's mode is the caller's."""
+    model's mode is the caller's. A criterion with a world bound
+    (`functools.partial(criterion, world=...)`, as `make_train_step` passes
+    it) gives this rank's shares of the global losses."""
     param = next(model.parameters())
+    dropout_generator = dropout_generator or generator
     if amp:
         outputs = amp_forward(model, _model_inputs(batch, torch.bfloat16, param.device),
-                              generator)
+                              dropout_generator)
     else:
         outputs = model(*_model_inputs(batch, param.dtype, param.device),
-                        dropout_generator=generator)
+                        dropout_generator=dropout_generator)
     targets = _flatten_targets(batch, param.device)
     fw = batch.get("gt_temporal_mask")
     fw = None if fw is None else _to(fw, param.device, torch.float32).reshape(-1)
@@ -105,8 +119,10 @@ def compute_losses(model: torch.nn.Module, criterion: SetCriterion, batch: Dict,
 
 def make_train_step(model: torch.nn.Module, criterion: SetCriterion,
                     weight_dict: Dict[str, float], optimizer: Optimizer,
-                    generator: torch.Generator,
-                    amp: bool = False) -> Callable[[Dict], Dict[str, torch.Tensor]]:
+                    generator: torch.Generator, amp: bool = False,
+                    dropout_generator: Optional[torch.Generator] = None,
+                    world: Optional[distributed.World] = None
+                    ) -> Callable[[Dict], Dict[str, torch.Tensor]]:
     """Returns `step(batch) -> metrics`: one training step (forward in
     training mode, losses, backward, clipped AdamW update) on a loader-format
     batch (uint8 `images` and `pre_masks` [B, T, H, W, 3], `audio_log_mel`,
@@ -117,20 +133,43 @@ def make_train_step(model: torch.nn.Module, criterion: SetCriterion,
     draws. amp=True is the AVSS regime (SOLVER.AMP.ENABLED): the forward in
     bfloat16 on bf16 copies of the float32 weights (`amp_forward`); the
     losses, the gradients on the float32 weights, the clip and AdamW in
-    float32. bf16 needs no loss scaling (float32's exponent range)."""
+    float32. bf16 needs no loss scaling (float32's exponent range).
+
+    `world` (default: `distributed.current()`) with more than one rank: the
+    batch is this rank's rows of the global batch, every rank seeds
+    `generator` alike (the criterion draws at the global shape from it),
+    dropout draws from `dropout_generator`, which must be the rank's own
+    (e.g. seeded by `distributed.rank_seed`), the gradients are summed over
+    the ranks before the clip, and the metrics are the global batch's
+    losses. With one rank, dropout draws from `generator` unless
+    `dropout_generator` is given."""
+    world = world or distributed.current()
+    if world.size > 1 and dropout_generator is None:
+        raise ValueError("with more than one rank, dropout needs a generator of the rank's own "
+                         "(dropout_generator)")
+    params = [p for g in optimizer.adamw.param_groups for p in g["params"]]
+    ranked = functools.partial(criterion, world=world)
+    # one process without a dropout generator calls compute_losses as it always has
+    extra = {"dropout_generator": dropout_generator} if dropout_generator is not None else {}
 
     def train_step(batch: Dict) -> Dict[str, torch.Tensor]:
         was_training = model.training
         model.train()
         try:
-            losses = compute_losses(model, criterion, batch, generator, amp=amp)
+            losses = compute_losses(model, ranked, batch, generator, amp=amp, **extra)
             loss = total_loss(losses, weight_dict)
             optimizer.zero_grad()
             loss.backward()
+            metrics = {"total_loss": loss.detach(), **{k: v.detach() for k, v in losses.items()}}
+            if world.size > 1:
+                distributed.all_sum_tensors_([p.grad for p in params if p.grad is not None],
+                                             world)
+                summed = world.all_sum_(torch.stack(list(metrics.values())))
+                metrics = dict(zip(metrics, summed.unbind()))
             optimizer.step()
         finally:
             model.train(was_training)
-        return {"total_loss": loss.detach(), **{k: v.detach() for k, v in losses.items()}}
+        return metrics
 
     return train_step
 

@@ -10,14 +10,28 @@ greppable log line (`s/iter`, `data_time`, `lr`). `metrics.jsonl` gets a row
 per log line and per evaluation, the writers (`metrics.json`, TensorBoard)
 the same scalars.
 
-One process on one device (MODEL.DEVICE, "cuda" by default: the current
-CUDA device, raising without one). Batches go to the card from pinned host
-memory without blocking. The seed is cfg.SEED taken as the JAX trainer
-takes it (`cfg.SEED or 0`, so the default -1 is the number -1, not d2's
-"random"); it seeds the model's init, the training generator (dropout and
-the criterion's draws), the data order and the mapper's transforms (numpy
-takes it modulo 2^32). The JAX trainer gives its loader no seed, so its
-data order is seed 0's whatever cfg.SEED says; the port's follows the seed.
+Each rank of the run (`parallel/distributed.py::World`; one rank unless the
+process joined a group) drives one device, MODEL.DEVICE ("cuda" by default:
+the current CUDA device, which the launcher sets to the rank's, raising
+without one). Batches go to the card from pinned host memory without
+blocking. The seed is cfg.SEED taken as the JAX trainer takes it
+(`cfg.SEED or 0`, so the default -1 is the number -1, not d2's "random");
+it seeds the model's init, the training generator (dropout and the
+criterion's draws), the data order and the mapper's transforms (numpy takes
+it modulo 2^32). The JAX trainer gives its loader no seed, so its data order
+is seed 0's whatever cfg.SEED says; the port's follows the seed.
+
+With several ranks, SOLVER.IMS_PER_BATCH stays the global batch, as in the
+JAX package: each rank loads its slice of it (`TrainLoader`'s shards), the
+step sums the gradients over the ranks (`train/train_step.py`), rank 0's
+weights are broadcast before the first step, dropout draws from a
+generator of the rank's own (seeded from cfg.SEED, the rank and the start
+iteration), and the criterion's draws from the shared one that the step
+checkpoints keep. Every rank evaluates its shard of each split and gets the
+merged metrics, so the best-checkpoint decision is the same on all; only
+rank 0 writes metrics.jsonl, the writers, `model_best.pth` and the step
+checkpoints, and every rank waits at a barrier after each checkpoint, so a
+resume on any rank reads a finished file.
 """
 
 from __future__ import annotations
@@ -39,6 +53,7 @@ from combo_avs_torch.evaluation.evaluator import SemSegEvaluator, SemSegEvaluato
 from combo_avs_torch.losses.criterion import build_criterion, build_weight_dict
 from combo_avs_torch.models.layers import init_weights
 from combo_avs_torch.models.meta_arch import build_model
+from combo_avs_torch.parallel import distributed
 from combo_avs_torch.train.checkpoint import (BestCheckpointer, load_checkpoint, save_checkpoint,
                                               step_dirs)
 from combo_avs_torch.train.evaluate import eval_settings, evaluate
@@ -94,8 +109,10 @@ class Trainer:
     """DefaultTrainer's counterpart: `resume_or_load`, then `train` or
     `test`."""
 
-    def __init__(self, cfg, device: Optional[torch.device | str] = None):
+    def __init__(self, cfg, device: Optional[torch.device | str] = None,
+                 world: Optional[distributed.World] = None):
         self.cfg = cfg
+        self.world = world or distributed.current()
         self.seed = int(cfg.get("SEED", 0) or 0)  # as the JAX trainer reads it (trainer.py:501)
         self.model = init_weights(build_model(cfg, device), seed=self.seed)
         self.device = next(self.model.parameters()).device
@@ -103,12 +120,14 @@ class Trainer:
         self.weight_dict = build_weight_dict(cfg)
         self.optimizer = build_optimizer(cfg, self.model)
         self.generator = torch.Generator(device=self.device).manual_seed(self.seed)
+        self.dropout_generator: Optional[torch.Generator] = None  # one rank: `generator`
         os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
         self.best_ckpt = BestCheckpointer(cfg.OUTPUT_DIR, metric="mIoU")
         self.metrics_file = os.path.join(cfg.OUTPUT_DIR, "metrics.jsonl")
         self.storage = EventStorage()
         self.writers = [JSONWriter(os.path.join(cfg.OUTPUT_DIR, "metrics.json")),
-                        TensorBoardWriter(os.path.join(cfg.OUTPUT_DIR, "tb"))]
+                        TensorBoardWriter(os.path.join(cfg.OUTPUT_DIR, "tb"))
+                        ] if self.world.main else []
         self.start_iter = 0
         self.eval_timing: Dict[str, Dict] = {}  # each dataset's last evaluate() timing
 
@@ -116,7 +135,8 @@ class Trainer:
         records = DatasetCatalog[self.cfg.DATASETS.TRAIN[0]]()
         return TrainLoader(records, build_mapper(self.cfg, is_train=True, seed=self.seed),
                            batch_size=self.cfg.SOLVER.IMS_PER_BATCH, seed=self.seed % 2**32,
-                           num_workers=self.cfg.DATALOADER.NUM_WORKERS)
+                           num_workers=self.cfg.DATALOADER.NUM_WORKERS,
+                           shard_index=self.world.rank, num_shards=self.world.size)
 
     def resume_or_load(self, resume: bool = False) -> None:
         """With `resume`, restore the newest `step_N` checkpoint under
@@ -133,6 +153,8 @@ class Trainer:
              ddt: float) -> None:
         loss = float(metrics["total_loss"])
         lr = self.optimizer.schedule(it)
+        if not self.world.main:
+            return
         logger.info("iter %d/%d total_loss %.4f lr %.2e (%.3f s/iter, data_time %.3f s/iter)",
                     it + 1, max_iter, loss, lr, dt, ddt)
         with open(self.metrics_file, "a") as f:
@@ -150,8 +172,14 @@ class Trainer:
         evaluation and checkpoint; data_time is the wait on the loader."""
         cfg = self.cfg
         max_iter = max_iter or cfg.SOLVER.MAX_ITER
+        world = self.world
+        if world.size > 1:
+            distributed.broadcast_module_(self.model, world)
+            self.dropout_generator = torch.Generator(device=self.device).manual_seed(
+                distributed.rank_seed(self.seed + self.start_iter, world.rank))
         step = make_train_step(self.model, self.criterion, self.weight_dict, self.optimizer,
-                               self.generator, amp=cfg.SOLVER.AMP.ENABLED)
+                               self.generator, amp=cfg.SOLVER.AMP.ENABLED,
+                               dropout_generator=self.dropout_generator, world=world)
         loader = self._train_loader()
         t0, n_timed, t_data = time.perf_counter(), 0, 0.0
         try:
@@ -171,8 +199,10 @@ class Trainer:
                     self._eval_and_track(it + 1)
                     paused = True
                 if (it + 1) % cfg.SOLVER.CHECKPOINT_PERIOD == 0 or it + 1 == max_iter:
-                    save_checkpoint(cfg.OUTPUT_DIR, self.model, self.optimizer, self.generator,
-                                    it + 1)
+                    if world.main:
+                        save_checkpoint(cfg.OUTPUT_DIR, self.model, self.optimizer,
+                                        self.generator, it + 1)
+                    world.barrier()
                     paused = True
                 if paused:
                     t0, n_timed, t_data = time.perf_counter(), 0, 0.0
@@ -187,6 +217,8 @@ class Trainer:
         if "sem_seg" in all_results:
             all_results = {self.cfg.DATASETS.TEST[0]: all_results}
         primary = self.cfg.DATASETS.TEST[0]
+        if not self.world.main:  # the merged metrics: rank 0 decides and writes for all
+            return all_results[primary]
         # the best checkpoint follows the first test dataset
         improved = self.best_ckpt.update(all_results[primary], self.model, step)
         multi = len(all_results) > 1
@@ -212,7 +244,8 @@ class Trainer:
         trainer does on one device, with the config's precision and
         test-time augmentation (`eval_settings`); results go to
         OUTPUT_DIR/inference/<dataset>/, and with `vis_dir` each frame's
-        prediction to a PNG there (`save_prediction_vis`)."""
+        prediction to a PNG there (`save_prediction_vis`). With several
+        ranks each scores its shard and all return the merged metrics."""
         names = [dataset_name] if dataset_name is not None else list(self.cfg.DATASETS.TEST)
         settings = eval_settings(self.cfg, self.device)
         results = {}
@@ -220,5 +253,6 @@ class Trainer:
             results[name], self.eval_timing[name] = evaluate(
                 self.model, name, batch_size=1, max_videos=max_videos,
                 output_dir=self.cfg.OUTPUT_DIR, mapper=build_mapper(self.cfg, is_train=False),
-                evaluator=build_evaluator(self.cfg, name), vis_dir=vis_dir, **settings)
+                evaluator=build_evaluator(self.cfg, name), vis_dir=vis_dir, world=self.world,
+                **settings)
         return next(iter(results.values())) if len(results) == 1 else results
