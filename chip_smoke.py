@@ -1,5 +1,7 @@
 """Drive the PyTorch port's paths on one NVIDIA GPU and check them: COMBO-R50
 S4 inference, S4 training, and the S4 evaluation and training entry points,
+the model variants without one of COMBO's components and with the other
+pixel decoders, the offline data tools,
 the evaluation with test-time augmentation and prediction dumps, data
 parallelism (ranks over gloo on the card, `train_net --num-devices` over
 NCCL); the JPEG
@@ -101,6 +103,25 @@ non-zero and never prints its last line:
      2` on the shipped R50 S4 config over NCCL (one rank on a one-card host):
      one metrics.jsonl, an evaluation and a checkpoint, whose merged metrics
      equal a one-process `Trainer.test` of that checkpoint exactly;
+  9c. variants: six models `build_model` builds from the shipped R50 S4
+     config with overrides, each one code path the flagship does not take
+     (VARIANTS: (a) no pre-SAM tower + MHA-S fusion, (b) MHA-S-Audio + the
+     "dim" query fusion + no cosine loss, (c) MHA-None + the "all" query
+     fusion + the decoder's input projections, (d) early fusion on res2 + a
+     trained VGGish tower + SGD, (e) the BasePixelDecoder, (f) the
+     TransformerEncoderPixelDecoder), full width, seeded weights: one bf16
+     eval step of 4 videos x 5 frames x 224^2 and one fp32 train step of 8,
+     each after a warm-up, with their walls, the train step's peak memory,
+     finite losses and every kernel's launches by plan (the FPN decoders
+     launch no K1 or K2); phase 8's card-vs-CPU forward on (a), (d) and (e);
+  9d. variant-entry: `train_net` on the shipped R50 S4 config with model
+     (a) and SGD as trailing overrides, 2 iterations with an evaluation and a
+     checkpoint (no Maskiges in its batches), then `pred` on its
+     model_best.pth, the launches of both counted;
+  9e. tools: `python -m combo_avs_torch.tools.preprocess_audio` on the card
+     (a synthetic 10 s 44.1 kHz stereo wav, held to the CPU frontend within
+     1e-4), `maskige` and `resize_frames` on a synthetic tree, their outputs
+     read back by the port's readers;
   10. COMBO-R50 AVSS: `build_model` of the shipped avs_ss/COMBO_R50_bs8_90k.yaml
      (71 classes, SOLVER.AMP.ENABLED) with seeded weights: 4 bf16 AMP steps,
      the first a warm-up, of 8 videos x 10 frames x 224^2, K = 12 slots, v2
@@ -329,6 +350,37 @@ BF16_TTA_MARGIN = 1.5
 JPEG_QUALITY = 95
 JPEG_PSNR_FLOOR = {"420": 30.0, "444": 34.0, "gray": 40.0}
 JPEG_SIZES = ((SIZE, SIZE), (720, 1280))  # a frame, and an AVSBench source frame
+
+# the model variants (variants phase): full COMBO-R50 width, the shipped S4
+# config with these overrides, seeded weights; each one code path the
+# flagship does not take. A bf16 eval step at B x T x 224^2 and an fp32 train
+# step at TRAIN_B x T x 224^2, K = TRAIN_K, each after a warm-up step
+VARIANTS = {
+    "a_nosem_mha_s": ["MODEL.PRE_SAM.USE_PRE_SAM", "False", "MODEL.FUSE_CONFIG.TYPE", "MHA-S"],
+    "b_s_audio_dim_nocos": ["MODEL.FUSE_CONFIG.TYPE", "MHA-S-Audio",
+                            "MODEL.FUSE_CONFIG.QUERIES_FUSE_TYPE", "dim",
+                            "MODEL.MASK_FORMER.COSINE_WEIGHT", "0.0"],
+    "c_none_all_proj": ["MODEL.FUSE_CONFIG.TYPE", "MHA-None",
+                        "MODEL.FUSE_CONFIG.QUERIES_FUSE_TYPE", "all",
+                        "MODEL.MASK_FORMER.ENFORCE_INPUT_PROJ", "True"],
+    "d_early_vggish_sgd": ["MODEL.FUSE_CONFIG.FUSION_STEP", "early",
+                           "MODEL.AUDIO.FREEZE_AUDIO_EXTRACTOR", "False",
+                           "SOLVER.OPTIMIZER", "SGD"],
+    "e_base_fpn": ["MODEL.SEM_SEG_HEAD.PIXEL_DECODER_NAME", "BasePixelDecoder"],
+    "f_transformer_fpn": ["MODEL.SEM_SEG_HEAD.PIXEL_DECODER_NAME",
+                          "TransformerEncoderPixelDecoder"],
+}
+# the variants the card-vs-CPU forward also runs on (phase 8's bounds)
+VARIANTS_VS_CPU = ("a_nosem_mha_s", "d_early_vggish_sgd", "e_base_fpn")
+# the variant entry point: `train_net` on the shipped S4 config with model
+# (a) and SGD over ENTRY_TRAIN_VIDEOS / VARIANT_VAL_VIDEOS synthetic videos,
+# 2 iterations with an evaluation and a checkpoint at 2; then `pred` on it
+VARIANT_ENTRY_OPTS = VARIANTS["a_nosem_mha_s"] + ["SOLVER.OPTIMIZER", "SGD"]
+VARIANT_VAL_VIDEOS = 4
+# the tools phase: a 10 s 44.1 kHz stereo wav through `preprocess_audio` on
+# the card, held to the CPU frontend (the log-mel's float32 FFTs on two
+# devices; the CPU tests hold the CPU frontend to JAX's at the same bound)
+TOOLS_LOG_MEL_ATOL = 1e-4
 
 # the card's published peaks (NVIDIA H100 SXM data sheet, at the 700 W limit):
 # HBM bandwidth and float32 outside the tensor cores
@@ -2463,7 +2515,7 @@ def ddp_step_fn(model, world, dropout_seed: int):
 
     dev = next(model.parameters()).device
     opt = Keeping(model)
-    opt.grads, opt.params = [], [p for g in opt.adamw.param_groups for p in g["params"]]
+    opt.grads = []
     step = make_train_step(model, SetCriterion(), build_weight_dict(), opt,
                            torch.Generator(device=dev).manual_seed(SEED),
                            dropout_generator=torch.Generator(device=dev).manual_seed(dropout_seed),
@@ -2559,7 +2611,7 @@ def ddp_check_ranks(tag: str, tmp: str, rows: list, dev: torch.device, smi: str)
             names = {id(p): n for n, p in model.named_parameters()}
             leaves = [names[id(p)] for p in opt.params]
             sizes = [p.numel() for p in opt.params]
-            lr = max(g["lr"] for g in opt.adamw.param_groups)
+            lr = max(g["lr"] for g in opt.inner.param_groups)
             batch = train_batch(TRAIN_B, SIZE, dev, seed=SEED)
             reset_counts()
             for k in range(DDP_STEPS):
@@ -2805,6 +2857,298 @@ def phase_avss(smi: str, dev: torch.device, walls: dict) -> dict:
     return out
 
 
+def variant_launches(deform: bool, eval_step: bool) -> dict:
+    """K1-K7 launches of one step of a variant: the eval step K1 6 (the
+    deformable encoder) and K7 1; the train step TRAIN_LAUNCHES; the FPN
+    pixel decoders launch no K1 or K2."""
+    if eval_step:
+        want = {k: 0 for k in TRAIN_LAUNCHES}
+        want.update(k1=6, k7=1)
+    else:
+        want = dict(TRAIN_LAUNCHES)
+    if not deform:
+        want.update(k1=0, k2=0)
+    return want
+
+
+def phase_variants(smi: str, dev: torch.device) -> dict:
+    """Each model of VARIANTS at full R50 width from `build_model` of the
+    shipped S4 config with its overrides, seeded weights: one bf16 eval step
+    (after a warm-up) at B x T x 224^2 and one fp32 train step (after a
+    warm-up) at TRAIN_B x T x 224^2, K = TRAIN_K, with the config's
+    criterion, weights and optimizer; the step walls, the train step's peak
+    memory, finite losses named as the config's weights, every kernel's
+    launches by plan against `variant_launches`; the model without the SEM
+    tower gets batches without Maskiges; a trained VGGish tower (d) changes,
+    a frozen one does not. Then, on VARIANTS_VS_CPU, the card-vs-CPU forward
+    (phase 8)."""
+    from combo_avs_torch.config import setup_cfg
+    from combo_avs_torch.losses.criterion import build_criterion, build_weight_dict
+    from combo_avs_torch.models.layers import init_weights
+    from combo_avs_torch.models.meta_arch import build_model
+    from combo_avs_torch.train.optim import build_optimizer
+    from combo_avs_torch.train.train_step import make_eval_step, make_train_step
+
+    rows = {}
+    for name, opts in VARIANTS.items():
+        tag = f"variants {name}"
+        cfg = setup_cfg(R50_CONFIG, opts)
+        t0 = time.perf_counter()
+        model = init_weights(build_model(cfg), seed=SEED)
+        if next(model.parameters()).device != dev:
+            raise AssertionError(f"[{tag}] build_model did not build on the card")
+        build_s = time.perf_counter() - t0
+        deform = cfg.MODEL.SEM_SEG_HEAD.PIXEL_DECODER_NAME == "MSDeformAttnPixelDecoder"
+        pre_sam = cfg.MODEL.PRE_SAM.USE_PRE_SAM
+        row = {"params": sum(p.numel() for p in model.parameters()), "build_s": build_s}
+
+        # eval, bf16
+        batch = _batch(np.random.RandomState(SEED), dev)
+        if not pre_sam:
+            del batch["pre_masks"]
+        step = make_eval_step(model, out_size=(SIZE, SIZE), bf16=True)
+        step(batch)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        sem = step(batch)
+        torch.cuda.synchronize()
+        row["eval_s"] = time.perf_counter() - t0
+        counts, plans = read_counts(), _plans()
+        want = variant_launches(deform, eval_step=True)
+        if counts != want or plans["k7"]["patch"] != 1 or \
+                sum(plans["k1"].values()) != want["k1"]:
+            raise AssertionError(f"[{tag}] eval launches {counts} by plan {plans}, expected "
+                                 f"{want} (K7 through patch)")
+        if tuple(sem.shape) != (B * T, 2, SIZE, SIZE) or not bool(torch.isfinite(sem).all()):
+            raise AssertionError(f"[{tag}] eval output {tuple(sem.shape)} not finite")
+        row["eval_launches"], row["eval_plans"] = counts, plans
+        del step, sem
+
+        # train, fp32
+        wd = build_weight_dict(cfg)
+        opt = build_optimizer(cfg, model)
+        tstep = make_train_step(model, build_criterion(cfg), wd, opt,
+                                torch.Generator(device=dev).manual_seed(SEED))
+        tb = train_batch(TRAIN_B, SIZE, dev, seed=SEED)
+        if not pre_sam:
+            del tb["pre_masks"]
+        audio0 = [p.detach().clone() for p in model.audio_backbone.parameters()]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        m0 = tstep(tb)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        m1 = tstep(tb)
+        torch.cuda.synchronize()
+        row["train_s"] = time.perf_counter() - t0
+        row["peak_bytes"] = torch.cuda.max_memory_allocated()
+        counts, plans = read_counts(), _plans()
+        want = variant_launches(deform, eval_step=False)
+        if counts != want or plans["k4_dimg"]["staged"] != want["k4_dimg"]:
+            raise AssertionError(f"[{tag}] train launches {counts} by plan {plans}, "
+                                 f"expected {want} (K4 dimg through staged)")
+        metrics = [{k: float(v) for k, v in m.items()} for m in (m0, m1)]
+        for m in metrics:
+            if set(m) != {"total_loss", *wd} or not all(np.isfinite(v) for v in m.values()):
+                raise AssertionError(f"[{tag}] losses not finite or misnamed: {sorted(m)}")
+        audio_moved = any(not torch.equal(a, p) for a, p in zip(
+            audio0, model.audio_backbone.parameters()))
+        if audio_moved != (not cfg.MODEL.AUDIO.FREEZE_AUDIO_EXTRACTOR):
+            raise AssertionError(f"[{tag}] the VGGish tower moved: {audio_moved}, frozen: "
+                                 f"{cfg.MODEL.AUDIO.FREEZE_AUDIO_EXTRACTOR}")
+        row.update(train_launches=counts, train_plans=plans, losses=metrics[-1],
+                   optimizer=type(opt.inner).__name__,
+                   n_cosine=sum(k.startswith("loss_cosine") for k in wd))
+        log(f"[{tag}] {row['params']} parameters (built in {build_s:.1f} s); bf16 eval step "
+            f"[{B}x{T}x{SIZE}^2] {row['eval_s']:.4f} s, launches {row['eval_launches']}; fp32 "
+            f"train step [{TRAIN_B}x{T}x{SIZE}^2] K={TRAIN_K} {row['train_s']:.4f} s, "
+            f"max_memory_allocated {row['peak_bytes'] / 2**30:.2f} GiB, {row['optimizer']}, "
+            f"total_loss {metrics[-1]['total_loss']:.6f} ({len(wd)} weighted losses, "
+            f"{row['n_cosine']} cosine), VGGish trained: {audio_moved}; launches {counts} "
+            f"on {smi}")
+        del tstep, opt, tb, m0, m1
+        if name in VARIANTS_VS_CPU:
+            t0 = time.perf_counter()
+            twin = cpu_twin(model, lambda d, c=cfg: build_model(c, d))
+            row["card_vs_cpu"] = phase_card_vs_cpu(model, twin, tag=f"{tag} card-vs-cpu")
+            row["card_vs_cpu_s"] = time.perf_counter() - t0
+            del twin
+        rows[name] = row
+        del model
+        torch.cuda.empty_cache()
+    check_imports("[variants] build_model and the steps")
+    return rows
+
+
+def phase_variant_entry(smi: str) -> dict:
+    """The entry points on a variant as a user runs them: `train_net.main` on
+    the shipped S4 config with VARIANT_ENTRY_OPTS (model (a), no SEM tower,
+    MHA-S, and SGD) over a synthetic S4 tree, 2 iterations with an evaluation
+    and a checkpoint at 2; then `pred.main` with the same config and
+    overrides on its model_best.pth over the val split (bf16, TEST.BF16
+    auto). The mapper ships no Maskiges; every iteration is logged with
+    finite losses; each kernel launches as the steps and the eval batches
+    imply; the metrics lie in [0, 1]; nothing of jax, flax, yaml, cv2 or the
+    JAX package is imported."""
+    import tempfile
+
+    from combo_avs_torch import pred, train_net
+    from combo_avs_torch.config import setup_cfg
+    from combo_avs_torch.data.catalogs import DatasetCatalog, register_all
+    from combo_avs_torch.data.synth import make_s4
+    from combo_avs_torch.train.trainer import build_mapper
+
+    tag = "variant-entry"
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        make_s4(tmp, ENTRY_TRAIN_VIDEOS, VARIANT_VAL_VIDEOS, size=SIZE)
+        cfg = setup_cfg(R50_CONFIG, VARIANT_ENTRY_OPTS)
+        register_all(tmp)
+        sample = build_mapper(cfg, is_train=True)(DatasetCatalog["avss4_sem_seg_train"]()[0], 0)
+        if "pre_masks" in sample:
+            raise AssertionError(f"[{tag}] the mapper shipped Maskiges to a model without SEM")
+        out_dir = os.path.join(tmp, "out")
+        argv = ["--config-file", R50_CONFIG, "--datasets-root", tmp, "--log-every", "1",
+                "OUTPUT_DIR", out_dir, "SOLVER.MAX_ITER", str(ENTRY_ITERS), "TEST.EVAL_PERIOD",
+                str(ENTRY_ITERS), "SOLVER.CHECKPOINT_PERIOD", str(ENTRY_ITERS),
+                *VARIANT_ENTRY_OPTS]
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        trainer = train_net.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check_imports(f"[{tag}] train_net.main")
+        if type(trainer.optimizer.inner).__name__ != "TraceSGD" or trainer.model.use_pre_sam:
+            raise AssertionError(f"[{tag}] trained {type(trainer.optimizer.inner).__name__}, "
+                                 f"SEM {trainer.model.use_pre_sam}")
+        counts = read_counts()
+        with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        steps = [r for r in rows if "total_loss" in r]
+        evals = [r for r in rows if "mIoU" in r]
+        if [r["iter"] for r in steps] != list(range(1, ENTRY_ITERS + 1)) or \
+                not all(np.isfinite(r["total_loss"]) for r in steps) or len(evals) != 1:
+            raise AssertionError(f"[{tag}] logged {rows}")
+        want = {k: v * ENTRY_ITERS for k, v in TRAIN_LAUNCHES.items()}
+        want["k1"] += 6 * VARIANT_VAL_VIDEOS
+        want["k7"] += VARIANT_VAL_VIDEOS
+        if counts != want:
+            raise AssertionError(f"[{tag}] train_net launches {counts}, expected {want}")
+        out["train_net"] = {"wall_s": wall, "rows": steps, "evals": evals, "launches": counts}
+        log(f"[{tag}] train_net.main {ENTRY_ITERS} iterations of model (a) + SGD: "
+            + ", ".join(f"iter {r['iter']} total_loss {r['total_loss']:.6f} "
+                        f"{r['s_per_iter']:.4f} s/iter" for r in steps)
+            + f"; eval mIoU {evals[0]['mIoU']:.4f}; {wall:.1f} s wall; launches {counts} on {smi}")
+        del trainer
+        torch.cuda.empty_cache()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = pred.main(["--datasets-root", tmp, "--checkpoint",
+                         os.path.join(out_dir, "model_best.pth"), "--config-file", R50_CONFIG,
+                         "--batch-size", str(EVAL_BATCH), *VARIANT_ENTRY_OPTS])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check_imports(f"[{tag}] pred.main")
+        counts = read_counts()
+        batches = -(-VARIANT_VAL_VIDEOS // EVAL_BATCH)
+        want = {k: {"k1": 6 * batches, "k7": batches}.get(k, 0) for k in counts}
+        m = res["sem_seg"]
+        if counts != want or set(m) != {"mIoU", "f_score"} or not all(
+                np.isfinite(v) and 0.0 <= v <= 1.0 for v in m.values()):
+            raise AssertionError(f"[{tag}] pred: {m}, launches {counts}, expected {want}")
+        out["pred"] = {"wall_s": wall, "metrics": m, "launches": counts}
+        log(f"[{tag}] pred.main on its model_best.pth (bf16, {batches} batch(es) of "
+            f"{EVAL_BATCH}): {m}; {wall:.1f} s wall; launches {counts} on {smi}")
+    return out
+
+
+def phase_tools(smi: str, dev: torch.device) -> dict:
+    """The offline tools on the card's host: `preprocess_audio` (its CLI, on
+    the card) on a synthetic 10 s 44.1 kHz stereo wav, its pickle held to the
+    CPU frontend within TOOLS_LOG_MEL_ATOL and read by the mappers'
+    `load_audio`; `maskige` on synthetic SAM masks and `resize_frames` on a
+    synthetic AVSS video (JPEG frames, gray PNG labels), whose outputs the
+    port's image reader reads at the expected shapes. The CPU tests hold
+    the tools' outputs to the JAX tools' (cv2)."""
+    import pickle
+    import tempfile
+
+    from scipy.io import wavfile
+
+    from combo_avs_torch.data.image import read_image
+    from combo_avs_torch.data.jpeg import write_jpeg
+    from combo_avs_torch.data.mappers import load_audio
+    from combo_avs_torch.data.png import write_png
+    from combo_avs_torch.tools import maskige, preprocess_audio, resize_frames
+
+    tag = "tools"
+    rng = np.random.RandomState(SEED)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        vid = os.path.join(tmp, "video0")
+        os.makedirs(os.path.join(vid, "frames"))
+        os.makedirs(os.path.join(vid, "labels_semantic"))
+        rate, secs = 44100, 10
+        t = np.arange(rate * secs) / rate
+        wave = np.stack([0.4 * np.sin(2 * np.pi * 440 * t), 0.3 * np.sin(2 * np.pi * 660 * t)],
+                        -1) + 0.05 * rng.randn(t.size, 2)
+        wav = os.path.join(vid, "audio.wav")
+        wavfile.write(wav, rate, (wave * 32767 * 0.8).astype(np.int16))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if preprocess_audio.main(["--root", tmp]) != 1:
+            raise AssertionError(f"[{tag}] preprocess_audio wrote no pickle")
+        torch.cuda.synchronize()
+        audio_s = time.perf_counter() - t0
+        with open(os.path.join(vid, "audio.pkl"), "rb") as f:
+            got = pickle.load(f)
+        want = preprocess_audio.process_wav(wav, device="cpu")
+        err = float(np.abs(got - want).max())
+        if got.shape != (10, 1, 96, 64) or got.dtype != np.float32 or err > TOOLS_LOG_MEL_ATOL:
+            raise AssertionError(f"[{tag}] audio.pkl {got.shape} {got.dtype}, max |card - cpu| "
+                                 f"{err:.3e} (atol {TOOLS_LOG_MEL_ATOL})")
+        mel = load_audio(os.path.join(vid, "audio.pkl"))
+        out["audio"] = {"max_abs_err": err, "wall_s": audio_s}
+        log(f"[{tag}] preprocess_audio on the card: {secs} s {rate} Hz stereo -> "
+            f"{got.shape} log-mel, max |card - cpu| {err:.3e} (atol {TOOLS_LOG_MEL_ATOL}), "
+            f"{audio_s:.2f} s wall (the first call's FFT plan included); load_audio "
+            f"{mel.shape} on {smi}")
+
+        masks = np.zeros((6, 360, 640), bool)
+        for k in range(6):
+            y, x = rng.randint(0, 300), rng.randint(0, 560)
+            masks[k, y:y + rng.randint(20, 360 - y), x:x + rng.randint(20, 640 - x)] = True
+        sam_dir = os.path.join(tmp, "pre_SAM_mask", "video0")
+        os.makedirs(sam_dir)
+        for i in range(3):
+            np.save(os.path.join(sam_dir, f"{i}.npy"), masks[: 2 * i + 2])
+            write_jpeg(os.path.join(vid, "frames", f"{i}.jpg"),
+                       rng.randint(0, 256, (360, 640, 3)).astype(np.uint8))
+            lab = np.zeros((360, 640), np.uint8)
+            lab[100:200, 200:400] = i + 1
+            write_png(os.path.join(vid, "labels_semantic", f"{i}.png"), lab)
+        t0 = time.perf_counter()
+        n_mask = maskige.main(["--root", sam_dir])
+        n_img = resize_frames.main(["--root", tmp, "--mode", "crop"])
+        tools_s = time.perf_counter() - t0
+        rgb = read_image(os.path.join(sam_dir, "0_mask_color.png"))
+        frame = read_image(os.path.join(vid, "processed_frames", "0.jpg"))
+        label = read_image(os.path.join(vid, "processed_labels_semantic", "0.png"), gray=True)
+        if (n_mask, n_img) != (3, 6) or rgb.shape != (SIZE, SIZE, 3) or \
+                frame.shape != (SIZE, SIZE, 3) or label.shape != (SIZE, SIZE) or \
+                set(np.unique(label)) - {0, 1}:
+            raise AssertionError(f"[{tag}] maskige {n_mask} files, resize_frames {n_img}: "
+                                 f"{rgb.shape}, {frame.shape}, {label.shape}")
+        out["images"] = {"maskiges": n_mask, "resized": n_img, "wall_s": tools_s}
+        log(f"[{tag}] maskige: {n_mask} Maskiges {rgb.shape}; resize_frames --mode crop: "
+            f"{n_img} frames and labels at {SIZE}^2, read back; {tools_s:.2f} s wall")
+    check_imports(f"[{tag}] the tools")
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2863,6 +3207,9 @@ def main(argv=None) -> int:
     del model, twin
     torch.cuda.empty_cache()
     ddp = timed("ddp", phase_ddp, smi, dev)
+    var = timed("variants", phase_variants, smi, dev)
+    ve = timed("variant-entry", phase_variant_entry, smi)
+    tools = timed("tools", phase_tools, smi, dev)
     avss = phase_avss(smi, dev, walls)
     pvt = phase_pvt(smi, dev, walls)
 
@@ -2874,6 +3221,11 @@ def main(argv=None) -> int:
              "pvt_pred_ms3": pvt["pred_ms3"]["launches"], "avss_train": avss["train"]["launches"],
              "avss_train_entry": avss["entry"]["launches"], "avss_pred": avss["pred"]["launches"],
              "tta_pred": tta["launches"]}
+    for name, row in var.items():
+        paths[f"variant_{name}_eval"] = row["eval_launches"]
+        paths[f"variant_{name}_train"] = row["train_launches"]
+    paths["variant_train_entry"] = ve["train_net"]["launches"]
+    paths["variant_pred"] = ve["pred"]["launches"]
     for r in ddp["rows"]:
         paths[f"ddp_train_rank{r['rank']}"] = r["counts"]
         paths[f"ddp_eval_rank{r['rank']}"] = r["eval_counts"]
@@ -2992,6 +3344,13 @@ def main(argv=None) -> int:
                             **{k: ddp[k] for k in ("steps", "eval_max_diff",
                                                    "ranks_wall_s", "entry_wall_s", "entry_cards",
                                                    "entry_metrics")}},
+                    "variants": {name: {k: row[k] for k in (
+                        "params", "eval_s", "train_s", "peak_bytes", "optimizer", "n_cosine",
+                        "losses", "card_vs_cpu") if k in row} for name, row in var.items()},
+                    "variant_entry": {"train_net": {k: ve["train_net"][k] for k in (
+                        "wall_s", "rows", "evals")}, "pred": {k: ve["pred"][k] for k in (
+                            "wall_s", "metrics")}},
+                    "tools": tools,
                     "walls_s": walls}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,18 +6,22 @@ default key surface (`get_cfg`), `_BASE_` file inheritance with deep merge,
 command-line overrides (`merge_from_list`) and `setup_cfg`. The shipped
 configs under `combo_avs_tpu/configs/` are read in place, as data.
 
-The files are block YAML as `yaml.safe_dump` writes them
-(`combo_avs_tpu/configs/_generate.py`), and `read_yaml` reads that subset
-with the standard library alone: block mappings, block sequences (indented
-or not under their key), plain scalars resolved as PyYAML's SafeLoader
-resolves them (null, bool, decimal int, float, str), flat flow lists of
-plain scalars, and comments. A key repeated in one mapping deep-merges into
-the first (the reference's S4 base file repeats `MODEL:`). Tuples written
-as strings (`TRAIN: ("x",)`, `SIZE: (224, 224)`) become tuples. Anything
-else raises ValueError rather than being misread: quoted scalars, tags
-(the reference's `!!python/object/apply:eval` among them; no shipped file
-uses it), anchors, aliases, block scalars, flow mappings, several
-documents, and the number forms other than decimal.
+The shipped files are block YAML as `yaml.safe_dump` writes them
+(`combo_avs_tpu/configs/_generate.py`); upstream and users' files add a few
+more forms. `read_yaml` reads, with the standard library alone: block
+mappings, block sequences (indented or not under their key), plain scalars
+resolved as PyYAML's SafeLoader resolves them (null, bool, decimal int,
+float, str), single- and double-quoted scalars (keys too) on one line,
+anchors (`&a`) and aliases (`*a`) of any node, flow sequences and flow
+mappings on one line, nested in each other, comments, and the reference's
+`!!python/object/apply:eval ["expr"]` tag, evaluated as the JAX reader
+does with no builtins but int, range and float. A key repeated in one
+mapping deep-merges into the first (the reference's S4 base file repeats
+`MODEL:`). Tuples written as strings (`TRAIN: ("x",)`, `SIZE: (224, 224)`)
+become tuples. Anything else raises ValueError rather than being misread:
+other tags, merge keys, block scalars, multi-line flow collections and
+quoted scalars, compact nested block collections, several documents, and
+the number forms other than decimal.
 
 One default differs on purpose: MODEL.DEVICE is "cuda" (the JAX package
 says "tpu"), and the entry points run on the card unless the config or the
@@ -166,16 +170,22 @@ _OTHER_NUMBER = re.compile(r"[-+]?(?:0[0-7_]+$|0x|0b|[0-9][0-9_]*(?::[0-5]?[0-9]
                            r"|\.(?:inf|Inf|INF)$)|\.(?:nan|NaN|NAN)$")
 
 
+EVAL_TAG = "!!python/object/apply:eval"
+# the builtins the eval tag's expression may call (combo_avs_tpu/config.py:157-166)
+EVAL_BUILTINS = {"int": int, "range": range, "float": float}
+_ESCAPES = {"0": "\0", "a": "\a", "b": "\b", "t": "\t", "\t": "\t", "n": "\n", "v": "\v",
+            "f": "\f", "r": "\r", "e": "\x1b", " ": " ", '"': '"', "/": "/", "\\": "\\",
+            "N": "\x85", "_": "\xa0", "L": "\u2028", "P": "\u2029"}
+_HEX_ESCAPES = {"x": 2, "u": 4, "U": 8}
+
+
 def _plain(s: str) -> Any:
     """A plain scalar, resolved as PyYAML's SafeLoader resolves it; any
     other YAML construct raises."""
-    if s.startswith("!"):
-        raise ValueError(f"YAML tag {s.split()[0]} is not read (the reference's "
-                         "!!python/object/apply:eval dialect is not ported)")
-    if s[:1] and s[0] in "'\"&*|>{}[]%@`?,#" or s == "-" or s.startswith("- ") \
+    if s[:1] and s[0] in "'\"&*!|>{}[]%@`?,#" or s == "-" or s.startswith("- ") \
             or ": " in s or s.endswith(":"):
-        raise ValueError(f"YAML construct not read: {s!r} (quoted scalars, anchors, "
-                         "aliases, block scalars and flow mappings are not read)")
+        raise ValueError(f"YAML construct not read: {s!r} (block scalars, tags other than "
+                         f"{EVAL_TAG}, directives and reserved indicators are not read)")
     if s in _NULL:
         return None
     if s in _BOOL:
@@ -189,22 +199,174 @@ def _plain(s: str) -> Any:
     return s
 
 
-def _scalar(s: str) -> Any:
-    """The value text of one line: a plain scalar or a flow list of them."""
-    if not s.startswith("["):
-        return _plain(s)
-    items = [x.strip() for x in s[1:-1].split(",")] if s.endswith("]") else None
-    if items and not items[-1]:
-        items.pop()  # "[]", or a trailing comma
-    if items is None or any(not x or set(x) & set("[]{}") for x in items):
-        raise ValueError(f"nested or malformed flow lists are not read: {s!r}")
-    return [_plain(x) for x in items]
+def _quoted(s: str, i: int) -> Tuple[str, int]:
+    """The quoted scalar starting at s[i] -> (its value, the index after the
+    closing quote); single quotes double to escape, double quotes take
+    YAML's backslash escapes. It must close on its line."""
+    q, out, i = s[i], [], i + 1
+    while i < len(s):
+        c = s[i]
+        if c == q:
+            if q == "'" and s[i + 1:i + 2] == "'":
+                out.append("'")
+                i += 2
+                continue
+            return "".join(out), i + 1
+        if c == "\\" and q == '"':
+            e = s[i + 1:i + 2]
+            if e in _ESCAPES:
+                out.append(_ESCAPES[e])
+                i += 2
+            elif e in _HEX_ESCAPES:
+                n = _HEX_ESCAPES[e]
+                digits = s[i + 2:i + 2 + n]
+                if len(digits) != n or not re.fullmatch(r"[0-9a-fA-F]+", digits):
+                    raise ValueError(f"bad escape in {s!r}")
+                out.append(chr(int(digits, 16)))
+                i += 2 + n
+            else:
+                raise ValueError(f"bad escape in {s!r}")
+            continue
+        out.append(c)
+        i += 1
+    raise ValueError(f"quoted scalar not closed on its line (multi-line scalars are not "
+                     f"read): {s!r}")
+
+
+class _Flow:
+    """A flow node (`[...]`, `{...}`, quoted, plain, anchored or aliased)
+    on one line, read from `s[i:]`."""
+
+    def __init__(self, s: str, anchors: dict):
+        self.s, self.i, self.anchors = s, 0, anchors
+
+    def ws(self):
+        while self.i < len(self.s) and self.s[self.i] in " \t":
+            self.i += 1
+
+    def node(self, stops: str) -> Any:
+        """The node at the cursor, up to one of `stops` (flow plain scalars
+        end at `,`, `]`, `}` and `: `)."""
+        self.ws()
+        s = self.s
+        anchor = None
+        if s.startswith("&", self.i):
+            m = re.compile(r"&([^\s,\[\]{}]+)").match(s, self.i)
+            anchor, self.i = m.group(1), m.end()
+            self.ws()
+        if s.startswith("*", self.i):
+            m = re.compile(r"\*([^\s,\[\]{}]+)").match(s, self.i)
+            if anchor or m.group(1) not in self.anchors:
+                raise ValueError(f"unknown YAML alias in {s!r}")
+            self.i = m.end()
+            return self.anchors[m.group(1)]
+        if s.startswith("!", self.i):
+            value = self._tagged()
+        elif s.startswith("[", self.i):
+            value = self._sequence()
+        elif s.startswith("{", self.i):
+            value = self._mapping()
+        elif s.startswith(("'", '"'), self.i):
+            value, self.i = _quoted(s, self.i)
+        else:
+            j = self.i
+            while j < len(s) and s[j] not in stops and not (
+                    s[j] == ":" and (j + 1 == len(s) or s[j + 1] in " ,[]{}")):
+                j += 1
+            text, self.i = s[self.i:j].strip(), j
+            value = _plain(text) if text else None
+        if anchor is not None:
+            self.anchors[anchor] = value
+        return value
+
+    def _tagged(self):
+        if not self.s.startswith(EVAL_TAG, self.i):
+            raise ValueError(f"YAML tag not read: {self.s!r} (only {EVAL_TAG})")
+        self.i += len(EVAL_TAG)
+        self.ws()
+        if not self.s.startswith("[", self.i):
+            raise ValueError(f"{EVAL_TAG} takes a flow sequence here: {self.s!r}")
+        return _eval_tag(self._sequence())
+
+    def _sequence(self) -> list:
+        self.i += 1
+        out: list = []
+        while True:
+            self.ws()
+            if self.s.startswith("]", self.i):
+                self.i += 1
+                return out
+            out.append(self.node(",]"))
+            self._separator("]")
+
+    def _mapping(self) -> dict:
+        self.i += 1
+        out: dict = {}
+        while True:
+            self.ws()
+            if self.s.startswith("}", self.i):
+                self.i += 1
+                return out
+            key = self.node(",}:")
+            self.ws()
+            value = None
+            if self.s.startswith(":", self.i):
+                self.i += 1
+                value = self.node(",}")
+            _put(out, key, value)
+            self._separator("}")
+
+    def _separator(self, close: str):
+        self.ws()
+        if self.s.startswith(",", self.i):
+            self.i += 1
+        elif not self.s.startswith(close, self.i):
+            raise ValueError(f"malformed YAML flow collection: {self.s!r}")
+
+
+def _eval_tag(args) -> Any:
+    """The reference's `!!python/object/apply:eval [expr]`, evaluated as the
+    JAX reader does: no globals but int, range and float."""
+    if not isinstance(args, list) or len(args) != 1 or not isinstance(args[0], str):
+        raise ValueError(f"{EVAL_TAG} takes one string, got {args!r}")
+    return eval(args[0], {"__builtins__": EVAL_BUILTINS})  # noqa: S307
+
+
+def _put(out: dict, key: Any, value: Any) -> None:
+    """A mapping entry; a repeated key deep-merges into the first when both
+    are mappings (the JAX reader's mapping constructor)."""
+    if isinstance(key, (dict, list)):
+        raise ValueError(f"YAML mapping key not read: {key!r}")
+    if key == "<<":
+        raise ValueError("YAML merge keys (<<) are not read")
+    if key in out and isinstance(out[key], dict) and isinstance(value, dict):
+        out[key] = _deep_merge(out[key], value)
+    else:
+        out[key] = value
+
+
+def _scalar(s: str, anchors: dict) -> Any:
+    """The value text of one line: one flow node, which must fill it."""
+    f = _Flow(s, anchors)
+    value = f.node("")
+    f.ws()
+    if f.i != len(s):
+        raise ValueError(f"YAML construct not read: {s!r}")
+    return value
 
 
 def _split_key(text: str) -> Tuple[Any, str] | None:
-    """(key, rest) when `text` is a mapping entry `key: rest`, else None."""
+    """(key, rest) when `text` is a mapping entry `key: rest` (the key plain
+    or quoted), else None."""
+    if text[:1] in ("'", '"'):
+        try:
+            key, j = _quoted(text, 0)
+        except ValueError:
+            return None
+        m = re.compile(r" *:(?: +(.*)|$)").match(text, j)
+        return (key, (m.group(1) or "").strip()) if m else None
     m = re.match(r"(.*?):(?: +(.*)|$)", text)
-    if not m or text[:1] == "[":
+    if not m or text[:1] in "[{&*!":
         return None
     return _plain(m.group(1).strip()), (m.group(2) or "").strip()
 
@@ -222,6 +384,7 @@ def _deep_merge(base: dict, over: dict) -> dict:
 class _Lines:
     def __init__(self, lines: List[Tuple[int, str]]):
         self.lines, self.pos = lines, 0
+        self.anchors: dict = {}
 
     def peek(self) -> Tuple[int, str] | None:
         return self.lines[self.pos] if self.pos < len(self.lines) else None
@@ -239,22 +402,33 @@ def _block(src: _Lines, indent: int) -> Any:
     if _split_key(text) is not None:
         return _mapping(src, ind)
     src.pos += 1
-    return _scalar(text)
+    return _scalar(text, src.anchors)
+
+
+_PROPERTIES = re.compile(r"(?:&(?P<anchor>[^\s,\[\]{}]+))?\s*(?P<tag>!\S+)?$")
 
 
 def _value_after(src: _Lines, rest: str, indent: int, seq_ok: bool) -> Any:
     """The value of an entry whose text after the indicator is `rest`: inline,
     or the block on the following, deeper lines (a sequence may sit at the
-    key's own indent when `seq_ok`)."""
-    if rest:
-        return _scalar(rest)
+    key's own indent when `seq_ok`), with its anchor and the eval tag when
+    `rest` holds only those."""
+    props = _PROPERTIES.match(rest) if rest[:1] in "&!" else None
+    if rest and props is None:
+        return _scalar(rest, src.anchors)
     nxt = src.peek()
-    if nxt is None:
-        return None
-    ind, text = nxt
-    if ind > indent or (seq_ok and ind == indent and _is_item(text)):
-        return _block(src, ind)
-    return None
+    value = None
+    if nxt is not None:
+        ind, text = nxt
+        if ind > indent or (seq_ok and ind == indent and _is_item(text)):
+            value = _block(src, ind)
+    if props is not None and props.group("tag"):
+        if props.group("tag") != EVAL_TAG:
+            raise ValueError(f"YAML tag not read: {props.group('tag')} (only {EVAL_TAG})")
+        value = _eval_tag(value)
+    if props is not None and props.group("anchor"):
+        src.anchors[props.group("anchor")] = value
+    return value
 
 
 def _mapping(src: _Lines, indent: int) -> dict:
@@ -270,11 +444,7 @@ def _mapping(src: _Lines, indent: int) -> dict:
             break
         key, rest = entry
         src.pos += 1
-        value = _value_after(src, rest, indent, seq_ok=True)
-        if key in out and isinstance(out[key], dict) and isinstance(value, dict):
-            out[key] = _deep_merge(out[key], value)
-        else:
-            out[key] = value
+        _put(out, key, _value_after(src, rest, indent, seq_ok=True))
     return out
 
 
@@ -285,17 +455,36 @@ def _sequence(src: _Lines, indent: int) -> list:
         if ind != indent or not _is_item(text):
             break
         src.pos += 1
-        out.append(_value_after(src, text[1:].strip(), indent, seq_ok=False))
+        rest = text[1:].strip()
+        if _is_item(rest) or (_split_key(rest) is not None and rest[:1] not in "'\"[{"):
+            raise ValueError(f"YAML construct not read: {text!r} (compact nested sequences "
+                             "and mappings in a sequence are not read)")
+        out.append(_value_after(src, rest, indent, seq_ok=False))
     return out
 
 
+def _strip_comment(raw: str) -> str:
+    """The line without its comment: a `#` at the start or after a space,
+    outside quotes."""
+    quote = None
+    for j, c in enumerate(raw):
+        if quote:
+            if c == quote:
+                quote = None
+        elif c in "'\"" and (j == 0 or raw[j - 1] in " \t[{,:-"):
+            quote = c
+        elif c == "#" and (j == 0 or raw[j - 1] in " \t"):
+            return raw[:j]
+    return raw
+
+
 def read_yaml(text: str) -> dict:
-    """Parse the YAML subset described in the module docstring."""
+    """Parse the YAML forms described in the module docstring."""
     lines: List[Tuple[int, str]] = []
     for raw in text.splitlines():
         if re.match(r"(?:---|\.\.\.)(?:\s|$)|%", raw):
             raise ValueError(f"YAML documents and directives are not read: {raw!r}")
-        line = re.split(r"(?:^|[ \t])#", raw, maxsplit=1)[0].rstrip()
+        line = _strip_comment(raw).rstrip()
         body = line.lstrip(" ")
         if body.startswith("\t"):
             raise ValueError("tab indentation is not YAML")

@@ -70,6 +70,16 @@ def decode_jpeg(data: bytes, gray: bool = False, name: str = "<bytes>") -> np.nd
     return out
 
 
+def jpeg_components(data: bytes, name: str = "<bytes>") -> int:
+    """The number of colour components of JPEG bytes (1 gray, 3 colour)."""
+    err = ctypes.create_string_buffer(_ERRLEN)
+    h, w, nc = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    if _codec().combo_jpeg_info(data, len(data), ctypes.byref(h), ctypes.byref(w),
+                                ctypes.byref(nc), err, _ERRLEN):
+        raise ValueError(f"{name}: {err.value.decode()}")
+    return nc.value
+
+
 def read_jpeg(path: str, gray: bool = False) -> np.ndarray:
     """The JPEG at `path` -> uint8 [H, W, 3] RGB, or [H, W] with gray=True."""
     with open(path, "rb") as f:

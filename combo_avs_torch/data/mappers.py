@@ -78,7 +78,8 @@ class AVSSemanticDatasetMapper:
     and `color_aug` (INPUT.COLOR_AUG_SSD); the flip is always drawn; with
     `geometric_aug` off (AVSS) the transform keeps the frame's size and has
     no crop. `binary_gt` (S4, MS3) maps a 0/255 GT to {0, 1}; off (AVSS) the
-    GT is index labels. The defaults are the shipped S4 recipe's
+    GT is index labels. `use_pre_sam` off (the model without the SEM tower)
+    reads no Maskiges and ships no `pre_masks`. The defaults are the shipped S4 recipe's
     (combo_avs_tpu/configs/avs_s4/R50-AVSS4-SemanticSegmentation.yaml:48-81)."""
 
     def __init__(self, size_divisibility: int = 224, is_train: bool = False,
@@ -87,8 +88,9 @@ class AVSSemanticDatasetMapper:
                  max_size: int = 896, crop_size: Optional[Tuple[int, int]] = (224, 224),
                  color_aug: bool = True, ignore_label: int = IGNORE_LABEL,
                  max_instances: int = MAX_INSTANCES, binary_gt: bool = True,
-                 geometric_aug: bool = True, seed: int = 0):
+                 geometric_aug: bool = True, seed: int = 0, use_pre_sam: bool = True):
         self.size_divisibility = size_divisibility
+        self.use_pre_sam = use_pre_sam
         self.augmentation = augmentation and is_train
         self.min_sizes, self.max_size = tuple(min_sizes), max_size
         self.crop_size, self.color_aug = crop_size, color_aug
@@ -107,7 +109,7 @@ class AVSSemanticDatasetMapper:
             g = read_image(p, gray=True)
             gts[i] = (g // 255 if self.binary_gt else g).astype(np.uint8)
         pres = None
-        if record.get("pre_mask_file_names"):
+        if self.use_pre_sam and record.get("pre_mask_file_names"):
             pres = [read_image(p) for p in record["pre_mask_file_names"][:T]]
 
         tf = None

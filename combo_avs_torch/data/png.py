@@ -89,6 +89,19 @@ def _gray(rgb: np.ndarray) -> np.ndarray:
     return y.astype(np.uint8)
 
 
+def png_color_type(data: bytes, name: str = "<bytes>") -> tuple:
+    """(bit depth, colour type, whether it has a tRNS chunk) of PNG bytes."""
+    if not data.startswith(_SIGNATURE):
+        raise ValueError(f"{name}: not a PNG file")
+    depth = ctype = None
+    trns = False
+    for kind, body in _chunks(data, name):
+        if kind == b"IHDR":
+            depth, ctype = body[8], body[9]
+        trns |= kind == b"tRNS"
+    return depth, ctype, trns
+
+
 def read_png(path: str, gray: bool = False) -> np.ndarray:
     """The PNG at `path` -> uint8 [H, W, 3] RGB, or [H, W] with gray=True."""
     with open(path, "rb") as f:

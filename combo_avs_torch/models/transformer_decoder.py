@@ -1,13 +1,18 @@
 """Masked-attention transformer decoder with audio-conditioned queries.
 
-Port of `combo_avs_tpu/models/transformer_decoder.py` (queries_fuse_type
-"add"): learnable `query_feat` + the fused audio vector as the initial
-queries, `query_embed` positions; per layer a masked cross-attention over one
+Port of `combo_avs_tpu/models/transformer_decoder.py`: the initial queries
+are the learnable `query_feat` combined with the fused audio vector by
+`queries_fuse_type` ("add": their sum; "dim": `query_feat` of hidden_dim -
+audio_out_dim columns, the audio concatenated after it; "all": the audio
+alone; "none": `query_feat` alone), `query_embed` positions; each
+multi-scale map goes through a 1x1 `input_proj{i}` conv when its width is
+not hidden_dim or `enforce_input_project` asks for one; per layer a masked cross-attention over one
 of the 3 pixel-decoder scales (cycling i % 3), self-attention and FFN, all
 post-norm; prediction heads after the queries and after every layer (shared
 LayerNorm, class linear, 3-layer mask MLP, masks = <mask_embed,
 mask_features>). The next layer's attention mask is sigmoid(mask) < 0.5 at
-the next scale, with fully blocked rows un-blocked.
+the next scale, with fully blocked rows un-blocked. `use_cosine_loss` False leaves
+`middles_attn_mask` empty (the model without the inter-frame loss).
 
 Module names follow the reference checkpoints
 (`transformer_cross_attention_layers.N.multihead_attn`, ...), which
@@ -28,6 +33,7 @@ from combo_avs_torch.models.position_encoding import sine_position_encoding
 NEG_INF = -1e9
 LN_EPS = 1e-6  # flax LayerNorm's default, as in the JAX package
 NUM_FEATURE_LEVELS = 3
+QUERIES_FUSE_TYPES = ("add", "dim", "all", "none")
 
 
 class MultiheadAttention(nn.Module):
@@ -110,11 +116,36 @@ class MultiScaleMaskedTransformerDecoder(nn.Module):
         dim_feedforward: int = 2048,
         dec_layers: int = 9,  # = cfg DEC_LAYERS - 1
         mask_dim: int = 256,
+        in_channels: Optional[int] = None,  # the maps' width; None: hidden_dim
+        enforce_input_project: bool = False,
+        queries_fuse_type: str = "add",
+        audio_out_dim: Optional[int] = None,  # None: hidden_dim
+        use_cosine_loss: bool = True,
     ):
         super().__init__()
+        in_channels = hidden_dim if in_channels is None else in_channels
+        audio_out_dim = hidden_dim if audio_out_dim is None else audio_out_dim
+        if queries_fuse_type not in QUERIES_FUSE_TYPES:
+            raise ValueError(f"queries_fuse_type {queries_fuse_type!r}: one of "
+                             f"{QUERIES_FUSE_TYPES}")
+        qdim = hidden_dim - audio_out_dim if queries_fuse_type == "dim" else hidden_dim
+        if qdim < 0:
+            raise ValueError(f"the dim query fusion needs hidden_dim ({hidden_dim}) of at "
+                             f"least audio_out_dim ({audio_out_dim})")
+        if queries_fuse_type in ("add", "all") and audio_out_dim != hidden_dim:
+            raise ValueError(f"the {queries_fuse_type} query fusion needs audio_out_dim "
+                             f"({audio_out_dim}) equal to hidden_dim ({hidden_dim})")
         self.num_queries, self.nheads, self.dec_layers = num_queries, nheads, dec_layers
+        self.hidden_dim, self.queries_fuse_type = hidden_dim, queries_fuse_type
+        self.use_cosine_loss = use_cosine_loss
         self.level_embed = nn.Embedding(NUM_FEATURE_LEVELS, hidden_dim)
-        self.query_feat = nn.Embedding(num_queries, hidden_dim)
+        # an empty Sequential is the identity and holds no parameters, as in
+        # the reference's `input_proj` list
+        project = in_channels != hidden_dim or enforce_input_project
+        self.input_proj = nn.ModuleList(
+            nn.Conv2d(in_channels, hidden_dim, 1) if project else nn.Sequential()
+            for _ in range(NUM_FEATURE_LEVELS))
+        self.query_feat = nn.Embedding(num_queries, qdim)
         self.query_embed = nn.Embedding(num_queries, hidden_dim)
         self.transformer_cross_attention_layers = nn.ModuleList(
             CrossAttentionLayer(hidden_dim, nheads) for _ in range(dec_layers))
@@ -145,22 +176,27 @@ class MultiScaleMaskedTransformerDecoder(nn.Module):
     def forward(
         self,
         x: Sequence[torch.Tensor],  # 3 multi-scale maps [B, C, H, W], coarse -> fine
-        audio_features: torch.Tensor,  # [B, 1, hidden_dim]
+        audio_features: torch.Tensor,  # [B, 1, audio_out_dim]
         mask_features: torch.Tensor,  # [B, mask_dim, H/4, W/4]
     ) -> Dict[str, object]:
         if len(x) != NUM_FEATURE_LEVELS:
             raise ValueError(f"expected {NUM_FEATURE_LEVELS} feature levels, got {len(x)}")
         B = mask_features.shape[0]
+        C = self.hidden_dim
         srcs, poss, sizes = [], [], []
         for i, feat in enumerate(x):
-            _, C, H, W = feat.shape
+            _, _, H, W = feat.shape
             sizes.append((H, W))
             pe = torch.from_numpy(sine_position_encoding(H, W, C // 2).reshape(1, H * W, C))
             poss.append(pe.to(feat.device, feat.dtype))
+            feat = self.input_proj[i](feat)
             srcs.append(feat.flatten(2).transpose(1, 2) + self.level_embed.weight[i][None, None, :])
 
         q_pos = self.query_embed.weight[None].expand(B, -1, -1)
-        output = self.query_feat.weight[None] + audio_features  # "add" query fusion
+        query = self.query_feat.weight[None].expand(B, -1, -1)
+        audio = audio_features.expand(B, self.num_queries, -1)
+        output = {"add": lambda: query + audio, "dim": lambda: torch.cat([query, audio], -1),
+                  "all": lambda: audio, "none": lambda: query}[self.queries_fuse_type]()
 
         predictions_class: List[torch.Tensor] = []
         predictions_mask: List[torch.Tensor] = []
@@ -189,5 +225,5 @@ class MultiScaleMaskedTransformerDecoder(nn.Module):
             # the cosine loss's inputs: the first prediction and every layer's
             # but the last, each [B, Q, h*w]
             "middles_attn_mask": [m.reshape(B, self.num_queries, -1)
-                                  for m in predictions_mask[:-1]],
+                                  for m in predictions_mask[:-1]] if self.use_cosine_loss else [],
         }

@@ -31,9 +31,12 @@ PVT model from it.
 
 `state_dict_from_flax` is the inverse of
 `combo_avs_tpu/train/checkpoint.py::convert_combo_checkpoint` for the ResNet
-and the PVT model: it takes the flax variable tree ({"params": ...}, and
-"frozen" for the ResNet's FrozenBN statistics; numpy leaves) and returns the
-reference `.pth` key names the port's modules use. Layouts: conv HWIO ->
+and the PVT model, and reads every variant the port builds: it takes the
+flax variable tree ({"params": ...}, and "frozen" for the ResNet's FrozenBN
+statistics; numpy leaves) and returns the reference `.pth` key names the
+port's modules use (the FPN decoders' `adapter_{k}` / `layer_{k}` numbered
+from res2 = 1, as the reference's fpn.py; the MHA-S block's under
+`a2i_attn.`, a pattern of the port's, since no published MHA-S file is read). Layouts: conv HWIO ->
 OIHW, Dense [in, out] -> Linear [out, in], LayerNorm / GroupNorm `scale` ->
 `weight`, and scanned parameters (the pixel decoder's encoder layers, each
 PVT stage's blocks, stacked on a leading axis) unstacked into one key per
@@ -174,21 +177,91 @@ def _vggish(sd, prefix, p):
     _embeddings(sd, prefix, p)
 
 
+def _levels(p, fmt: str) -> int:
+    n = 0
+    while fmt.format(n) in p:
+        n += 1
+    return n
+
+
 def _fusion(sd, prefix, p):
+    """An AVFuse of any type: the bilateral block (MHA-B, MHA-S-Audio), the
+    audio -> image block (MHA-S) or neither (MHA-None)."""
     sd[f"{prefix}audio_pos.weight"] = np.asarray(p["audio_pos"])
     sd[f"{prefix}level_embed.weight"] = np.asarray(p["level_embed"])
-    b, q = f"{prefix}b_attn.", p["b_attn"]
-    _norm(sd, f"{b}layer_norm_v_list.0", q["norm_v0"])
-    _norm(sd, f"{b}layer_norm_a_list.0", q["norm_a0"])
-    for lin, v in q["attn0"].items():
-        _dense(sd, f"{b}attn_list.0.{lin}", v)
-    sd[f"{b}gamma_v_list.0"] = np.asarray(q["gamma_v0"])
-    sd[f"{b}gamma_a"] = np.asarray(q["gamma_a"])
+    if "b_attn" in p:
+        b, q = f"{prefix}b_attn.", p["b_attn"]
+        for lvl in range(_levels(q, "attn{}")):
+            _norm(sd, f"{b}layer_norm_v_list.{lvl}", q[f"norm_v{lvl}"])
+            _norm(sd, f"{b}layer_norm_a_list.{lvl}", q[f"norm_a{lvl}"])
+            for lin, v in q[f"attn{lvl}"].items():
+                _dense(sd, f"{b}attn_list.{lvl}.{lin}", v)
+            sd[f"{b}gamma_v_list.{lvl}"] = np.asarray(q[f"gamma_v{lvl}"])
+        sd[f"{b}gamma_a"] = np.asarray(q["gamma_a"])
+    if "a2i_attn" in p:
+        b, q = f"{prefix}a2i_attn.", p["a2i_attn"]
+        for lvl in range(_levels(q, "attn{}")):
+            _norm(sd, f"{b}layer_norm_q_list.{lvl}", q[f"norm_q{lvl}"])
+            _norm(sd, f"{b}layer_norm_k_list.{lvl}", q[f"norm_k{lvl}"])
+            for lin, v in q[f"attn{lvl}"].items():
+                _dense(sd, f"{b}attn_list.{lvl}.{lin}", v)
+            sd[f"{b}gamma_list.{lvl}"] = np.asarray(q[f"gamma{lvl}"])
+
+
+def _conv_bias(sd, key, p):
+    sd[f"{key}.weight"] = _conv(p["kernel"])
+    if "bias" in p:
+        sd[f"{key}.bias"] = np.asarray(p["bias"])
+
+
+def _fpn(sd, prefix, p):
+    """The JAX FPN's convs, numbered from the lowest resolution (`layer0` on
+    res5), -> the reference's `layer_{k}` / `adapter_{k}`, numbered from
+    res2 = 1."""
+    n = _levels(p, "layer{}")
+    for idx in range(n):
+        k = n - idx
+        _conv_bias(sd, f"{prefix}layer_{k}", p[f"layer{idx}"])
+        _norm(sd, f"{prefix}layer_{k}.norm", p[f"layer_norm{idx}"])
+        if idx:
+            _conv_bias(sd, f"{prefix}adapter_{k}", p[f"adapter{idx}"])
+            _norm(sd, f"{prefix}adapter_{k}.norm", p[f"adapter_norm{idx}"])
+    _conv_bias(sd, f"{prefix}mask_features", p["mask_features"])
+
+
+def _mha(sd, key, q):
+    sd[f"{key}.in_proj_weight"] = np.asarray(q["in_proj_weight"])
+    sd[f"{key}.in_proj_bias"] = np.asarray(q["in_proj_bias"])
+    _dense(sd, f"{key}.out_proj", q["out_proj"])
+
+
+def _any_pixel_decoder(sd, prefix, p, enc_layers):
+    """The deformable pixel decoder, or an FPN one (`fpn_decoder.py`): the
+    plain FPN, or the transformer encoder on res5 (`input_proj`,
+    `encoder{i}`) ahead of it."""
+    if "encoder" in p:
+        _pixel_decoder(sd, prefix, p, enc_layers)
+        return
+    if "fpn" not in p:
+        _fpn(sd, prefix, p)
+        return
+    _conv_bias(sd, f"{prefix}input_proj", p["input_proj"])
+    for i in range(_levels(p, "encoder{}")):
+        q, key = p[f"encoder{i}"], f"{prefix}transformer.encoder.layers.{i}."
+        _mha(sd, f"{key}self_attn", q["self_attn"])
+        for name in ("linear1", "linear2"):
+            _dense(sd, f"{key}{name}", q[name])
+        for name in ("norm1", "norm2"):
+            _norm(sd, f"{key}{name}", q[name])
+    _fpn(sd, prefix, p["fpn"])
 
 
 def _predictor(sd, prefix, p, dec_layers):
     for name in ("query_feat", "query_embed", "level_embed"):
         sd[f"{prefix}{name}.weight"] = np.asarray(p[name])
+    for i in range(3):
+        if f"input_proj{i}" in p:
+            _conv_bias(sd, f"{prefix}input_proj.{i}", p[f"input_proj{i}"])
     for i in range(dec_layers):
         for kind, attn in (("self", "self_attn"), ("cross", "multihead_attn")):
             key = f"{prefix}transformer_{kind}_attention_layers.{i}."
@@ -211,10 +284,18 @@ def state_dict_from_flax(variables: Dict, dec_layers: int = 9, enc_layers: int =
     """The variables of the JAX MaskFormer -> {key: numpy array} for
     `combo_avs_torch.models.meta_arch.MaskFormer.load_state_dict` (after
     `torch.from_numpy`): {"params", "frozen"} of the ResNet model, or
-    {"params"} of the PVT model, which has no frozen collection."""
+    {"params"} of the PVT model, which has no frozen collection. Every
+    variant the port builds: with or without the pre-SAM tower and its SE
+    gates, early fusion (`fusion_module` and `audio_transformation` at the
+    top) or late (in the head), each fusion type, each pixel decoder, the
+    decoder's `input_proj{i}` and a `query_feat` of any width. `enc_layers`
+    counts the deformable decoder's layers (scanned, so not countable from
+    the tree); the FPN decoders' are counted."""
     params = variables["params"]
     sd: Dict[str, np.ndarray] = {}
     for tower in ("backbone", "pre_sam_backbone"):
+        if tower not in params:
+            continue
         if "patch_embed1" in params[tower]:
             _pvt(sd, f"{tower}.", params[tower])
         else:
@@ -226,9 +307,11 @@ def state_dict_from_flax(variables: Dict, dec_layers: int = 9, enc_layers: int =
             _dense(sd, f"scale_factor_module.{i}.{fc}", params[f"scale_factor{i}"][fc])
         i += 1
     head = params["sem_seg_head"]
-    _pixel_decoder(sd, "sem_seg_head.pixel_decoder.", head["pixel_decoder"], enc_layers)
-    _fusion(sd, "sem_seg_head.fusion_module.", head["fusion_module"])
-    _embeddings(sd, "sem_seg_head.audio_transformation.", head["audio_transformation"])
+    for prefix, node in (("", params), ("sem_seg_head.", head)):
+        if "fusion_module" in node:
+            _fusion(sd, f"{prefix}fusion_module.", node["fusion_module"])
+            _embeddings(sd, f"{prefix}audio_transformation.", node["audio_transformation"])
+    _any_pixel_decoder(sd, "sem_seg_head.pixel_decoder.", head["pixel_decoder"], enc_layers)
     _predictor(sd, "sem_seg_head.predictor.", head["predictor"], dec_layers)
     return sd
 
@@ -267,9 +350,10 @@ def load_reference_checkpoint(model: torch.nn.Module, path: str) -> None:
     not use and `convert_combo_checkpoint` does not read: `criterion.*` keys
     are dropped. Raises ValueError naming the missing and unexpected keys
     when the rest of the file does not cover the model exactly."""
-    sd = fan_out_siamese({k: v for k, v in load_reference_file(path).items()
-                          if not k.startswith(TRAINING_ONLY)})
+    sd = {k: v for k, v in load_reference_file(path).items() if not k.startswith(TRAINING_ONLY)}
     own = model.state_dict()
+    if any(k.startswith("pre_sam_backbone.") for k in own):
+        sd = fan_out_siamese(sd)
     missing, unexpected = sorted(set(own) - set(sd)), sorted(set(sd) - set(own))
     if missing or unexpected:
         raise ValueError(f"{path}: {len(missing)} missing keys {missing[:8]}, "
@@ -396,8 +480,10 @@ def load_pretrained(model: torch.nn.Module, weights: str = "", vggish: str = "")
     if weights and os.path.exists(weights):
         sd = load_reference_file(weights)
         tower = convert_pvt(sd) if isinstance(model.backbone, PVTv2) else convert_resnet(sd)
-        _load_part(model, fan_out_siamese({f"backbone.{k}": v for k, v in tower.items()}),
-                   weights)
+        part = {f"backbone.{k}": v for k, v in tower.items()}
+        if hasattr(model, "pre_sam_backbone"):
+            part = fan_out_siamese(part)
+        _load_part(model, part, weights)
         logger.info("Loaded backbone weights from %s", weights)
     elif weights:
         logger.info("MODEL.WEIGHTS %s not found: the backbone keeps its initialization",
@@ -438,7 +524,7 @@ def save_checkpoint(ckpt_dir: str, model: torch.nn.Module, optimizer, generator:
     path = os.path.join(ckpt_dir, f"step_{step}")
     os.makedirs(path, exist_ok=True)
     state = {"model": {k: v.detach().cpu() for k, v in model.state_dict().items()},
-             "optimizer": optimizer.adamw.state_dict(), "count": optimizer.count,
+             "optimizer": optimizer.inner.state_dict(), "count": optimizer.count,
              "generator": generator.get_state(), "iter": step}
     tmp = os.path.join(path, STATE_FILE + ".tmp")
     torch.save(state, tmp)
@@ -455,7 +541,7 @@ def load_checkpoint(path: str, model: torch.nn.Module, optimizer,
     `generator` (each on its own device); returns the iteration."""
     state = torch.load(os.path.join(path, STATE_FILE), map_location="cpu", weights_only=False)
     model.load_state_dict(state["model"], strict=True)
-    optimizer.adamw.load_state_dict(state["optimizer"])
+    optimizer.inner.load_state_dict(state["optimizer"])
     optimizer.count = int(state["count"])
     if generator is not None:
         generator.set_state(state["generator"])

@@ -176,10 +176,12 @@ def evaluate(model: torch.nn.Module, dataset_name: str, batch_size: int = 1,
         records = records[:max_videos]
     records = shard_records(records, world.rank, world.size)
     semantic = isinstance(evaluator, SemSegEvaluatorSS)
+    pre_sam = getattr(model, "use_pre_sam", True)
     if mapper is None:
         mapper = (AVSSemanticDatasetMapper(size_divisibility=size, binary_gt=False,
-                                           max_instances=AVSS_MAX_INSTANCES) if semantic
-                  else AVSSemanticDatasetMapper(size_divisibility=size))
+                                           max_instances=AVSS_MAX_INSTANCES,
+                                           use_pre_sam=pre_sam) if semantic
+                  else AVSSemanticDatasetMapper(size_divisibility=size, use_pre_sam=pre_sam))
     if tta is not None:
         step = make_tta_eval_step(model, scales=tta["scales"], flip=tta["flip"],
                                   out_size=(size, size), bf16=bf16)
@@ -200,7 +202,7 @@ def evaluate(model: torch.nn.Module, dataset_name: str, batch_size: int = 1,
                                        pad=batch_size > 1):
             t_data += time.perf_counter() - t_mark
             tc = time.perf_counter()
-            if "pre_masks" not in batch:
+            if pre_sam and "pre_masks" not in batch:
                 raise ValueError(f"{dataset_name}: videos without pre-SAM Maskiges; COMBO "
                                  "needs them")
             inputs = {k: _to_device(batch[k], device) for k in MODEL_INPUTS if k in batch}

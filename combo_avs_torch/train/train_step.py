@@ -37,11 +37,10 @@ def _model_inputs(batch: Dict, dtype: torch.dtype,
                   device: torch.device) -> Tuple[Optional[torch.Tensor], ...]:
     """(images, audio_log_mel, pre_masks, vid_temporal_mask) moved to
     `device` and cast to the compute type there (the loader ships uint8
-    frames and Maskiges, which bf16 holds exactly); the flag is None when
-    the batch has none."""
-    vid = batch.get("vid_temporal_mask")
-    return (*(_to(batch[k], device, dtype) for k in ("images", "audio_log_mel", "pre_masks")),
-            None if vid is None else _to(vid, device, dtype))
+    frames and Maskiges, which bf16 holds exactly); the Maskiges and the
+    flag are None when the batch has none."""
+    return tuple(None if batch.get(k) is None else _to(batch[k], device, dtype)
+                 for k in ("images", "audio_log_mel", "pre_masks", "vid_temporal_mask"))
 
 
 def _to(x, device: torch.device, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
@@ -147,7 +146,7 @@ def make_train_step(model: torch.nn.Module, criterion: SetCriterion,
     if world.size > 1 and dropout_generator is None:
         raise ValueError("with more than one rank, dropout needs a generator of the rank's own "
                          "(dropout_generator)")
-    params = [p for g in optimizer.adamw.param_groups for p in g["params"]]
+    params = optimizer.params
     ranked = functools.partial(criterion, world=world)
     # one process without a dropout generator calls compute_losses as it always has
     extra = {"dropout_generator": dropout_generator} if dropout_generator is not None else {}

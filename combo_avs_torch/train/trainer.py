@@ -70,7 +70,8 @@ MAPPERS = (*BINARY_MAPPERS, "avss_semantic")
 def build_mapper(cfg, is_train: bool, seed: int = 0) -> AVSSemanticDatasetMapper:
     """The dataset mapper a config describes (trainer.py:52-71): S4 and MS3
     with binary GT and 3 target slots; AVSS with index labels, 12 slots and
-    no geometric augmentation (its frames come resized)."""
+    no geometric augmentation (its frames come resized); Maskiges only for
+    a model with the SEM tower (MODEL.PRE_SAM.USE_PRE_SAM)."""
     name = cfg.INPUT.DATASET_MAPPER_NAME
     if name not in MAPPERS:
         raise NotImplementedError(f"INPUT.DATASET_MAPPER_NAME = {name!r} (the port has "
@@ -83,7 +84,8 @@ def build_mapper(cfg, is_train: bool, seed: int = 0) -> AVSSemanticDatasetMapper
         crop_size=tuple(cfg.INPUT.CROP.SIZE) if cfg.INPUT.CROP.ENABLED else None,
         color_aug=cfg.INPUT.COLOR_AUG_SSD, ignore_label=cfg.MODEL.SEM_SEG_HEAD.IGNORE_VALUE,
         max_instances=MAX_INSTANCES if binary else AVSS_MAX_INSTANCES, binary_gt=binary,
-        geometric_aug=binary, seed=seed % 2**32)
+        geometric_aug=binary, seed=seed % 2**32,
+        use_pre_sam=cfg.MODEL.PRE_SAM.USE_PRE_SAM)
 
 
 def build_evaluator(cfg, dataset_name: str):

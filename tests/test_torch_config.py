@@ -3,7 +3,10 @@ JAX package on the CPU: every shipped YAML file read to the same tree (yaml
 is the oracle here; the port reads the files without it), command-line
 overrides, the repeated-key merge, the tags the port refuses, and
 `build_model` / `build_criterion` / `build_weight_dict` / `build_optimizer`
-from a config. Equality throughout: no tolerance."""
+from a config; the upstream forms the reader also takes (quoted scalars,
+anchors and aliases, flow mappings, nested flow lists, the reference's eval
+tag) against yaml with the JAX package's loader. Equality throughout: no
+tolerance."""
 
 import glob
 import os
@@ -85,21 +88,74 @@ def test_overrides_and_repeated_keys_match_jax(tmp_path):
         port.SOLVER.MAX_ITER = 1
 
 
-@pytest.mark.parametrize("text", [
+# the YAML forms beyond the shipped files' subset that the reader takes:
+# the reference's eval tag, anchors and aliases, quoted scalars and keys,
+# flow mappings and nested flow collections
+READ_FORMS = [
     "INPUT:\n  MIN_SIZE_TRAIN: !!python/object/apply:eval [\"[int(x * 0.1 * 224) for x in "
     "range(5, 21)]\"]\n",
+    "INPUT:\n  MIN_SIZE_TRAIN: !!python/object/apply:eval\n  - \"[float(x) for x in range(3)]\"\n",
     "A: &anchor 1\nB: *anchor\n",
-    "A: 'x'\n", 'A: "x"\n', "'A': 1\n", "A: |\n  x\n", "A: {b: 1}\n", "A: [[1], 2]\n",
+    "A: &m\n  x: 1\n  y: [1, {z: 'q'}]\nB: *m\nC:\n  - &s \"a\\tb\"\n  - *s\n",
+    "A: &a [1, 2]\nB:\n  C: *a\n",
+    "A: 'x'\n", 'A: "x"\n', "'A': 1\n", '"A B": \'it\'\'s\'\n',
+    'A: "it\'s # not a comment"  # a comment\n', 'K: "\\u00e9\\x41 \\" \\\\"\n',
+    "A: {b: 1}\n", "A: [[1], 2]\n", "A: {b: [1, 2, {c: d}], 'e f': \"g\", h: [[], {}]}\n",
+    "A: {}\nB: []\nC: [ ]\nD: {a: , b: 1}\n",
+    'MODEL:\n  FUSE_CONFIG:\n    TYPE: "MHA-S"\n    FUSED_BACKBONE: ["res2"]\n',
+    "DATASETS:\n  TRAIN: ('avss4_sem_seg_train',)\n  TEST: \"('a', 'b')\"\n",
+    "A: {x: 1}\nA: {y: {z: 2}}\nB:\n  C: 1\nB:\n  D: 2\n",
+]
+
+
+@pytest.mark.parametrize("text", READ_FORMS)
+def test_yaml_forms_read_as_jax(text):
+    """Each form reads to the tree that yaml with the JAX package's loader
+    gives (repeated keys deep-merged, the eval tag evaluated), and a config
+    file that uses it reads as the JAX package reads it."""
+    want = yaml.load(text, Loader=jax_config._RefYamlLoader)
+    got = config.read_yaml(text)
+    assert repr(got) == repr(want)
+
+
+def test_eval_tag_has_only_its_builtins():
+    """The tag's expression sees no builtins but int, range and float, as in
+    the JAX reader: anything else is a NameError on both sides."""
+    text = "A: !!python/object/apply:eval [\"open('x')\"]\n"
+    for read in (config.read_yaml, lambda t: yaml.load(t, Loader=jax_config._RefYamlLoader)):
+        with pytest.raises(NameError, match="open"):
+            read(text)
+
+
+def test_config_file_with_upstream_forms_matches_jax(tmp_path):
+    f = tmp_path / "up.yaml"
+    f.write_text(f"_BASE_: {S4}\nMODEL:\n  FUSE_CONFIG:\n    TYPE: \"MHA-S\"\n"
+                 "    FUSED_BACKBONE: &fb ['res2']\n  MASK_FORMER: {DEC_LAYERS: 4, NHEADS: 2}\n"
+                 "INPUT:\n  MIN_SIZE_TRAIN: !!python/object/apply:eval [\"[int(x * 0.1 * 224) "
+                 "for x in range(5, 21)]\"]\n  CROP: {SIZE: \"(64, 64)\"}\n"
+                 "DATASETS:\n  TRAIN: ('avss4_sem_seg_train',)\n")
+    port, ref = config.setup_cfg(str(f)), jax_config.setup_cfg(str(f))
+    assert _without_device(port.to_dict()) == _without_device(ref.to_dict())
+    assert port.MODEL.FUSE_CONFIG.TYPE == "MHA-S" and port.INPUT.CROP.SIZE == (64, 64)
+    assert port.INPUT.MIN_SIZE_TRAIN == [int(x * 0.1 * 224) for x in range(5, 21)]
+
+
+@pytest.mark.parametrize("text", [
+    "A: !!python/name:os.system\n", "A: !custom 1\n", "A: !!str 1\n",
+    "A: &x {a: 1}\nB:\n  <<: *x\n", "A: *missing\n", "A: 'x\n", 'A: "\\q"\n',
+    "A: [1,\n  2]\n", "A: {a: 1\n", "A: |\n  x\n", "A: >\n  x\n",
     "A: 1\n---\nB: 2\n", "A: 0x1F\n", "A: 010\n", "A: .inf\n", "A: 1:30\n",
-    "A:\n- - 1\n", "A:\n- b: 1\n", "A: b: c\n",
+    "A:\n- - 1\n", "A:\n- b: 1\n", "A: b: c\n", "A: [a: 1]\n",
 ])
 def test_refused_yaml_raises(text):
-    """What the reader does not read raises by name, never misread: the
-    reference's eval tag (in no shipped file), anchors, quotes, block
-    scalars, flow mappings, nested flow lists, several documents, the
-    number forms other than decimal, sequences of sequences or mappings. Each
-    is YAML that PyYAML reads (or refuses too)."""
-    with pytest.raises(ValueError, match="not read"):
+    """What the reader does not read raises by name, never misread: tags
+    other than the reference's eval tag, merge keys, unknown aliases,
+    unclosed or badly escaped quotes, multi-line flow collections, block
+    scalars, several documents, the number forms other than decimal,
+    compact sequences of sequences or mappings, mappings inside flow
+    sequences. Each is YAML that PyYAML reads (or refuses too)."""
+    with pytest.raises(ValueError, match="not read|not closed|bad escape|unknown YAML alias|"
+                                         "malformed"):
         config.read_yaml(text)
 
 
@@ -156,17 +212,18 @@ def test_yaml_subset_round_trip(flow):
 def test_build_model_from_each_shipped_config(path):
     """For every shipped file: the port builds the model the JAX package's
     build_model describes (the same state-dict keys and shapes as
-    MaskFormer(**the JAX model's fields)), or raises NotImplementedError
-    naming the key it does not build yet (PVT, no pre-SAM tower)."""
+    MaskFormer(**the JAX model's fields)), or, for the
+    12 `*-SemanticSegmentation.yaml` bases, raises ValueError naming
+    FUSED_BACKBONE_DIM (early fusion with no fused level, on which the JAX
+    forward fails)."""
     cfg = config.setup_cfg(path)
     jm = jax_build_model(jax_config.setup_cfg(path))
-    try:
-        model = build_model(cfg, device="meta")
-    except NotImplementedError as e:
-        assert ("BACKBONE.NAME" in str(e) and "pvtv2" in str(e)) or (
-            "USE_PRE_SAM = False" in str(e)), str(e)
-        assert jm.backbone_name == "build_pvtv2_b5_backbone" or not jm.use_pre_sam
+    if path.endswith("-SemanticSegmentation.yaml"):
+        assert jm.fusion_step == "early" and not jm.fused_backbone_dim
+        with pytest.raises(ValueError, match="MODEL.FUSE_CONFIG.FUSED_BACKBONE_DIM"):
+            build_model(cfg, device="meta")
         return
+    model = build_model(cfg, device="meta")
     want = MaskFormer(**_port_kwargs(jm), device="meta").state_dict()
     got = model.state_dict()
     assert {k: tuple(v.shape) for k, v in got.items()} == {k: tuple(v.shape)
@@ -214,5 +271,10 @@ def test_criterion_weights_and_optimizer_from_config():
         for count in (0, 1, 5, 10, 30, 49, 50, 60):
             np.testing.assert_allclose(opt.schedule(count), float(ref(count)), rtol=1e-6)
         assert opt.clip_value == (0.01 if s.CLIP_GRADIENTS.ENABLED else 0.0)
-    with pytest.raises(NotImplementedError, match="SGD"):
-        build_optimizer(config.setup_cfg(S4, ["SOLVER.OPTIMIZER", "SGD"]), model)
+    sgd = build_optimizer(config.setup_cfg(S4, ["SOLVER.OPTIMIZER", "SGD"]), model)
+    assert type(sgd.inner).__name__ == "TraceSGD"
+    assert {g["momentum"] for g in sgd.inner.param_groups} == {0.9}
+    with pytest.raises(NotImplementedError, match="SOLVER.OPTIMIZER"):
+        build_optimizer(config.setup_cfg(S4, ["SOLVER.OPTIMIZER", "LAMB"]), model)
+    with pytest.raises(NotImplementedError, match="CLIP_TYPE"):
+        build_optimizer(config.setup_cfg(S4, ["SOLVER.CLIP_GRADIENTS.CLIP_TYPE", "value"]), model)

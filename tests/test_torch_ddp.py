@@ -20,12 +20,18 @@ tests/test_multiprocess.py runs two `jax.distributed` processes:
 
 The ranks (`tests/torch_ddp_worker.py`) meet through a file under the test's
 temporary directory, not a TCP port, so parallel test workers cannot
-collide. The JAX side (`tests/ddp_jax_reference.py`) runs in the test's own
-process while the ranks run; `train_net` and `pred` follow the ranks, from one
-launching process, so that at most four of the module's processes (this one
-and three others) hold memory at once.
+collide. This process evaluates the one-process port while the two ranks
+run; once they have ended, one launch of two ranks runs `train_net`'s rank
+function and then `pred`'s, and meanwhile this process runs the JAX side
+(`tests/ddp_jax_reference.py`), never beside the first two ranks: at most
+four of the module's processes (this one, the launcher and two ranks) are
+alive at once.
+`python3 tests/peak_rss_tree.py -- python -m pytest tests/test_torch_ddp.py`
+prints the module's peak memory summed over its processes.
 """
 
+import ctypes
+import gc
 import json
 import os
 import subprocess
@@ -73,9 +79,9 @@ def _start(args):
 
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
-    """Runs the two ranks, the JAX side here meanwhile (and the one-process
-    port evaluations), then `train_net` and `pred` on 2 devices; returns
-    what they all wrote."""
+    """Runs the two ranks (and the one-process port evaluations here
+    meanwhile), then `train_net` and `pred` in one launch of 2 ranks (and the
+    JAX side here meanwhile); returns what they all wrote."""
     d = str(tmp_path_factory.mktemp("ddp"))
     fields = _port_kwargs(jax_reference.tiny_jax_model())
     spec = {"fields": fields,
@@ -99,12 +105,15 @@ def ranks(tmp_path_factory):
                                     (w.AVSS_SPLIT, dict(fields, num_classes=71), 32)):
             one[name] = evaluate(w.tiny_model(fields_).eval(), name, batch_size=1,
                                  size=size)[0]["sem_seg"]
-        jmetrics, jgrads = jax_reference.step(fields)
-        jax.clear_caches()
         outs = [p.communicate(timeout=WORKER_TIMEOUT) for p in procs]
+        # the JAX side once the two ranks have ended, beside the entry
+        # launch, whose ranks (0.6 GiB each) hold half the first ones' memory
         procs.append(_start(["tests.torch_ddp_worker", "entry", tn_cfg, tn_root, tn_out]))
+        jmetrics, jgrads = jax_reference.step(fields)
         jeval = jax_reference.evaluations(d, spec)
         jax.clear_caches()
+        gc.collect()
+        ctypes.CDLL("libc.so.6").malloc_trim(0)
         outs.append(procs[2].communicate(timeout=WORKER_TIMEOUT))
     finally:
         for p in procs:
@@ -219,13 +228,15 @@ def test_two_rank_evaluate_matches_one_process_and_jax(ranks, split):
 
 
 def test_train_net_and_pred_two_devices_on_cpu(ranks, monkeypatch):
-    """`python -m combo_avs_torch.train_net --num-devices 2` with MODEL.DEVICE
-    cpu (two gloo ranks of one video each, 2 iterations, an evaluation and
-    a checkpoint at 2): one metrics.jsonl, written by rank 0 alone, its rows
-    once each; step_2 resumes into a one-process Trainer, and that Trainer's
-    evaluation of it equals the 2-rank run's merged metrics. Then `pred
-    --num-devices 2 --device cpu` on the model_best.pth it wrote printed one
-    merged result, rank 0's, equal to the same evaluation."""
+    """`train_net`'s rank function with MODEL.DEVICE cpu in a launch of two
+    gloo ranks (`distributed.launch`, as `train_net --num-devices 2` makes
+    it; one video each, 2 iterations, an evaluation and a checkpoint at 2):
+    one metrics.jsonl, written by rank 0 alone, its rows once each; step_2
+    resumes into a one-process Trainer, and that Trainer's evaluation of it
+    equals the 2-rank run's merged metrics. Then, in the same ranks, `pred`'s
+    rank function (`pred --num-devices 2 --device cpu`) on the
+    model_best.pth it wrote printed one merged result, rank 0's, equal to
+    the same evaluation."""
     tn = ranks["train_net"]
     with open(os.path.join(tn["out"], "metrics.jsonl")) as f:
         rows = [json.loads(line) for line in f]

@@ -462,5 +462,9 @@ def test_build_model_of_each_pvt_combo_config(name):
 
 @pytest.mark.parametrize("name", PVT_BASELINES)
 def test_pvt_baselines_without_pre_sam_still_raise(name):
-    with pytest.raises(NotImplementedError, match="MODEL.PRE_SAM.USE_PRE_SAM"):
+    """The PVT bases (no pre-SAM tower, early fusion with no fused level)
+    still raise: the port builds the model without the SEM tower now, but
+    the JAX forward fails on their empty FUSED_BACKBONE_DIM, and the port
+    names that key."""
+    with pytest.raises(ValueError, match="MODEL.FUSE_CONFIG.FUSED_BACKBONE_DIM"):
         build_model(config.setup_cfg(os.path.join(CONFIGS, name)), device="meta")

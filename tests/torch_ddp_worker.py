@@ -23,7 +23,7 @@ videos whose ranks hold 1 and 3 valid masks:
 
 `entry` runs `train_net --num-devices 2` on the CPU (2 iterations, an
 evaluation and a checkpoint at 2) and then `pred --num-devices 2` on the
-model_best.pth it wrote, in one process.
+model_best.pth it wrote, in one launch of two ranks (`entry_rank`).
 """
 
 from __future__ import annotations
@@ -102,7 +102,7 @@ class NormOptimizer(Optimizer):
     reaches its clip, so that `pre_clip_grads` can undo the clip."""
 
     def step(self) -> None:
-        grads = [p.grad for g in self.adamw.param_groups for p in g["params"]
+        grads = [p.grad for g in self.inner.param_groups for p in g["params"]
                  if p.grad is not None]
         self.norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
         super().step()
@@ -253,17 +253,33 @@ def rows_of(draws: list, local: dict, world) -> list:
     return [(pts[f], cand[m], tail[m]) for pts, cand, tail in draws]
 
 
-def entry(config_file: str, root: str, out: str) -> None:
-    """`train_net --num-devices 2` on the CPU, then `pred --num-devices 2` on
-    its model_best.pth (rank 0 prints the merged result)."""
+def entry_rank(train_argv: list, pred_argv: list):
+    """One rank of the entry launch: `train_net`'s rank function, then, once
+    every rank has finished training (rank 0 writes model_best.pth),
+    `pred`'s on the checkpoint."""
     from combo_avs_torch import pred, train_net
 
-    train_net.main(["--config-file", config_file, "--datasets-root", root, "--num-devices",
-                    "2", "--max-iter", "2", "--log-every", "1", "OUTPUT_DIR", out,
-                    "TEST.EVAL_PERIOD", "2", "SOLVER.CHECKPOINT_PERIOD", "2"])
-    pred.main(["--datasets-root", root, "--checkpoint", os.path.join(out, "model_best.pth"),
-               "--config-file", config_file, "--dataset", ENTRY_SPLIT, "--batch-size", "1",
-               "--device", "cpu", "--num-devices", "2"])
+    train_net.run_rank(train_net.parse_args(train_argv))
+    distributed.current().barrier()
+    return pred.run_rank(pred.parse_args(pred_argv))
+
+
+def entry(config_file: str, root: str, out: str) -> None:
+    """`train_net --num-devices 2` on the CPU, then `pred --num-devices 2` on
+    its model_best.pth (rank 0 prints the merged result), in one launch of
+    two ranks, as the two CLIs launch theirs."""
+    import importlib
+
+    train_argv = ["--config-file", config_file, "--datasets-root", root, "--num-devices", "2",
+                  "--max-iter", "2", "--log-every", "1", "OUTPUT_DIR", out, "TEST.EVAL_PERIOD",
+                  "2", "SOLVER.CHECKPOINT_PERIOD", "2"]
+    pred_argv = ["--datasets-root", root, "--checkpoint", os.path.join(out, "model_best.pth"),
+                 "--config-file", config_file, "--dataset", ENTRY_SPLIT, "--batch-size", "1",
+                 "--device", "cpu", "--num-devices", "2"]
+    os.makedirs(out, exist_ok=True)
+    # the spawned ranks find `entry_rank` by its module's name
+    fn = importlib.import_module("tests.torch_ddp_worker").entry_rank
+    distributed.launch(fn, 2, (train_argv, pred_argv), device_type="cpu", rendezvous_dir=out)
 
 
 if __name__ == "__main__":
