@@ -26,7 +26,9 @@ non-zero and never prints its last line:
      the plain version's call ms; and the least time the card could take
      (bound):
        K1 deformable-attention forward under both launch plans (staged, the
-       plan's choice, and global; fp32 and bf16 value; eval and training shapes),
+       plan's choice, and global; fp32 and bf16 value; eval and training shapes;
+       at TTA's 384^2 shapes the grouped plan, a smaller block on the whole
+       slice or on a channel group of it, against global),
        K2 its backward under both launch plans (level_slice, the plan's
        choice, and global; also a level one row over the opt-in limit), and
        in bf16 (the AMP step's types) at the AVSS training shape and a
@@ -38,9 +40,12 @@ non-zero and never prints its last line:
        K7 the fused semantic inference under both launch plans (patch at
        integer ratios, the plan's choice, and pixel; fp32 and bf16 masks;
        also the time of F.interpolate alone), K6 the point gather (against
-       torch.gather); K1 and K7 also at the TTA branches' shapes (bf16,
-       128^2 and 384^2 frames: K1's global plan and K7's pixel plan at 384^2
-       timed);
+       torch.gather, int64 and int32 indices; at the criterion's shape also
+       its floors: an empty kernel on its grid, a streaming copy of its index
+       into its output, the gather warm and with its source flushed from
+       L2); K1 and K7 also at the TTA branches' shapes (128^2 and 384^2
+       frames: K1's grouped plan against global at 384^2 in bf16 and fp32,
+       and K7's pixel plan at 384^2, timed);
      then each kernel ranked against its library call by device ms;
   3b. jpeg: the host JPEG codec built from `combo_avs_torch/native/jpeg.c`;
      synthetic frames at 224^2 and 1280 x 720 encoded at quality 95 and
@@ -283,6 +288,9 @@ K7_TOL_BF16 = 8e-3
 # K6 in the criterion's fallback: M = 120 masks of 3 x 12544 candidate
 # points, 9408 uncertain points each
 K6_SHAPE = dict(G=TRAIN_M, NS=3 * NUM_POINTS, P=3 * NUM_POINTS // 4)
+# K6's cold floor: a read of this many bytes, twice the card's 50 MB L2,
+# evicts the source before each gather
+K6_FLUSH_BYTES = 96 << 20
 # the eval entry point: a synthetic S4 val split, evaluated at batch 4
 EVAL_VIDEOS, EVAL_BATCH = 16, 4
 # the training entry points (COMBO-R50, then COMBO-PVTv2-B5): two distinct
@@ -623,11 +631,13 @@ def phase_k1(dev: torch.device) -> dict:
     """K1 against the plain version under both launch plans: the plan's own
     choice (staged where the (frame, head) value slice fits the card's
     opt-in shared memory, its query chunk made for the frame count and the
-    card's SMs) through the wrapper, and the other plan forced (global: the
-    plan at an opt-in limit of 0), at
-    the eval shape (20 frames), the training shape (40) and a ragged shape,
-    fp32 and bf16. Both plans are timed at the eval and training shapes,
-    the plain version beside the chosen one."""
+    card's SMs; grouped, a smaller block on the whole slice or on a channel
+    group of it, where the 32-warp staged block does not fit) through the
+    wrapper, and global forced (the plan at an
+    opt-in limit of 0), at the eval shape (20 frames), the training shape
+    (40), a ragged shape and the TTA branches' shapes, fp32 and bf16. Both
+    plans are timed at the eval and training shapes and at TTA's 384^2
+    (grouped), the plain version beside the chosen one."""
     from combo_avs_torch.ops import deform_attn_cuda as k1
     from combo_avs_torch.ops.deform_attn import ms_deform_attn_plain
 
@@ -644,9 +654,12 @@ def phase_k1(dev: torch.device) -> dict:
         ("train_bf16", torch.bfloat16, K1_LEVELS, train, Lq, K1_TOL_BF16),
         ("ragged_fp32", torch.float32, ragged_levels, ragged, 37, K1_TOL_FP32),
         ("ragged_bf16", torch.bfloat16, ragged_levels, ragged, 37, K1_TOL_BF16),
-        # the TTA branches' shapes (bf16, 20 frames) at 128^2 and 384^2
+        # the TTA branches' shapes (bf16, 20 frames) at 128^2 and 384^2; 384^2
+        # also in fp32 (TEST.BF16 off), where the grouped plan runs
         *((f"tta{s}_bf16", torch.bfloat16, tta_levels(s), K1_SHAPE,
            sum(h * w for h, w in tta_levels(s)), K1_TOL_BF16) for s in (128, 384)),
+        ("tta384_fp32", torch.float32, tta_levels(384), K1_SHAPE,
+         sum(h * w for h, w in tta_levels(384)), K1_TOL_FP32),
     ]
     with torch.inference_mode():
         for name, dtype, levels, shp, lq, tol in cases:
@@ -658,9 +671,9 @@ def phase_k1(dev: torch.device) -> dict:
                 sms)
             chosen = plan_at(optin)
             # a staged plan at an unbounded limit raises at launch if it does not fit:
-            # where the choice is global, staged does not fit and is not forced
-            other = plan_at(0) if chosen.kernel == "staged" else None
-            timed = levels == K1_LEVELS or name == "tta384_bf16"
+            # where the choice is global, no staged plan fits and none is forced
+            other = plan_at(0) if chosen.kernel != "global" else None
+            timed = levels == K1_LEVELS or name.startswith("tta384")
             row = {"chosen": chosen.kernel, "plans": {}}
             # the chosen plan runs as the wrapper picks it; the other is forced
             for plan, forced in ((chosen, None), (other, other))[:2 if other else 1]:
@@ -1037,25 +1050,57 @@ def phase_k7(dev: torch.device) -> dict:
     return result
 
 
+def k6_inputs(G: int, NS: int, P: int, dev: torch.device):
+    """Random points and top-k indices as the criterion makes them, with the
+    edge indices 0 and NS - 1 in every row."""
+    g = torch.Generator(device=dev).manual_seed(G)
+    src = torch.rand((G, NS, 2), generator=g, device=dev)
+    idx = torch.topk(torch.randn((G, NS), generator=g, device=dev), P, dim=-1).indices
+    idx[:, 0], idx[:, -1] = 0, NS - 1
+    return src, idx
+
+
+def k6_floors(src: torch.Tensor, idx: torch.Tensor, plan=None) -> dict:
+    """The gather's device ms beside its floors, each in the CUDA-graph
+    replay of `device_time_ms`, on the plan's grid: an empty kernel
+    (launch and tail), a streaming copy of the index into the output (the
+    index and output bytes alone), the gather as replayed back to back
+    (warm: what the replays leave of the source in L2) and the gather after
+    a read of K6_FLUSH_BYTES, which evicts the source from L2 (cold: the
+    pair's time less the read's own)."""
+    from combo_avs_torch.ops import gather_cuda as k
+
+    flush = torch.ones(K6_FLUSH_BYTES // 4, device=src.device)
+    out = {f"{mode}_ms": device_time_ms(lambda m=mode: k.gather_floor_cuda(src, idx, m, plan))[0]
+           for mode in ("empty", "stream")}
+    out["warm_ms"] = device_time_ms(lambda: k.gather_points_cuda(src, idx, plan))[0]
+    out["flush_ms"] = device_time_ms(lambda: flush.sum())[0]
+    out["cold_ms"] = device_time_ms(
+        lambda: (flush.sum(), k.gather_points_cuda(src, idx, plan)))[0] - out["flush_ms"]
+    return out
+
+
 def phase_k6(dev: torch.device) -> dict:
     """K6 against torch.gather, exactly, at the criterion fallback's shape
-    (indices from a top-k, as there) and at a ragged one."""
+    (indices from a top-k, as there) and at a ragged one, in int64 and int32
+    indices; at the criterion's shape its times, its bound and its floors
+    (`k6_floors`)."""
     from combo_avs_torch.ops import gather_cuda as k
 
     result = {}
     for name, (G, NS, P) in (("train", tuple(K6_SHAPE.values())), ("ragged", (3, 1500, 1001))):
-        g = torch.Generator(device=dev).manual_seed(G)
-        src = torch.rand((G, NS, 2), generator=g, device=dev)
-        idx = torch.topk(torch.randn((G, NS), generator=g, device=dev), P, dim=-1).indices
-        idx[:, 0], idx[:, -1] = 0, NS - 1  # the edge indices
-        got = k.gather_points_cuda(src, idx)
-        want = k.gather_points_plain(src, idx)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise AssertionError(f"[k6] {name}: differs from torch.gather")
-        log(f"[k6] {name}: [{G}, {NS}, 2] -> {P}: equal to torch.gather")
+        src, idx = k6_inputs(G, NS, P, dev)
+        for index in (idx, idx.int()):
+            got = k.gather_points_cuda(src, index)
+            want = k.gather_points_plain(src, index)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"[k6] {name} {index.dtype}: differs from torch.gather")
+            log(f"[k6] {name}: [{G}, {NS}, 2] -> {P}, {index.dtype} indices: equal to "
+                "torch.gather")
         if name != "train":
             continue
+        plan = k.launch_plan(idx.element_size(), idx.data_ptr(), got.data_ptr())
         idx2 = idx[..., None].expand(-1, -1, 2)
         t = timings(lambda: k.gather_points_cuda(src, idx),
                     plain=lambda: k.gather_points_plain(src, idx),
@@ -1064,9 +1109,15 @@ def phase_k6(dev: torch.device) -> dict:
         # reads (a top-k selects distinct points of its row)
         touched = int(torch.unique(idx + torch.arange(G, device=dev)[:, None] * NS).numel())
         bd = bound(nbytes(idx, got) + 8 * touched, 0)
-        log(f"[k6] {name}: {describe(t, 'torch.gather')}; bound {bd['bound_ms']:.4f} ms by "
-            f"{bd['bound_by']}")
-        result = dict(max_abs_err=0.0, **t, **bd)
+        floors = k6_floors(src, idx)
+        log(f"[k6] {name}: plan {plan}: {describe(t, 'torch.gather')}; bound "
+            f"{bd['bound_ms']:.4f} ms by {bd['bound_by']} ({bd['bound_ms'] / t['ms']:.0%} of it)")
+        log(f"[k6] {name}: floors, device ms on the plan's grid: empty kernel "
+            f"{floors['empty_ms']:.4f}, streaming copy of the index into the output "
+            f"{floors['stream_ms']:.4f}, gather warm {floors['warm_ms']:.4f}, gather with the "
+            f"source flushed from L2 {floors['cold_ms']:.4f} (the flush's read of "
+            f"{K6_FLUSH_BYTES >> 20} MiB {floors['flush_ms']:.4f} taken off)")
+        result = dict(max_abs_err=0.0, plan=plan._asdict(), floors=floors, **t, **bd)
     return result
 
 
@@ -1633,7 +1684,7 @@ def phase_train_entry(smi: str, bare_s_per_step: float, cfg_file: str, tag: str 
             want = {k: v * n for k, v in TRAIN_LAUNCHES.items()}
             want["k1"] += 6 * batches
             want["k7"] += batches
-            want_plans = {"k1": {"staged": want["k1"], "global": 0},
+            want_plans = {"k1": {"staged": want["k1"], "grouped": 0, "global": 0},
                           "k2": {"level_slice": want["k2"], "global": 0},
                           "k4_dimg": {"staged": want["k4_dimg"], "global": 0},
                           "k7": {"patch": want["k7"], "pixel": 0}}
@@ -2268,7 +2319,7 @@ def phase_avss_train(smi: str, model, cfg) -> dict:
     dtypes = dict(deform_attn_cuda.bwd_dtype_launches)
     peak = torch.cuda.max_memory_allocated()
     want = {k: v * steps for k, v in TRAIN_LAUNCHES.items()}
-    want_plans = {"k1": {"staged": want["k1"], "global": 0},
+    want_plans = {"k1": {"staged": want["k1"], "grouped": 0, "global": 0},
                   "k2": {"level_slice": want["k2"], "global": 0},
                   "k4_dimg": {"staged": want["k4_dimg"], "global": 0},
                   "k7": {"patch": 0, "pixel": 0}}
@@ -2416,7 +2467,7 @@ def phase_avss_entry(smi: str, tmp: str, bare_s_per_step: float) -> dict:
         raise AssertionError(f"[avss-entry] evaluations {evals}, expected one with {keys}")
     want = {k: v * iters for k, v in TRAIN_LAUNCHES.items()}
     want["k1"] += 6 * AVSS_VAL_VIDEOS
-    want_plans = {"k1": {"staged": want["k1"], "global": 0},
+    want_plans = {"k1": {"staged": want["k1"], "grouped": 0, "global": 0},
                   "k2": {"level_slice": want["k2"], "global": 0},
                   "k4_dimg": {"staged": want["k4_dimg"], "global": 0},
                   "k7": {"patch": 0, "pixel": 0}}
@@ -3259,12 +3310,15 @@ def main(argv=None) -> int:
                      plain_ms_bf16=k1["bf16"]["plain_ms"], bound_ms_bf16=k1["bf16"]["bound_ms"],
                      ms_train=k1["train_fp32"]["ms"], bound_ms_train=k1["train_fp32"]["bound_ms"],
                      tta_launches_by_plan=tta["plans"]["k1"],
-                     **{f"{k}_tta384_bf16": k1["tta384_bf16"][k]
+                     **{f"{k}_{name}": k1[name][k]
+                        for name in ("tta384_bf16", "tta384_fp32")
                         for k in ("max_abs_err", "ms", "call_ms", "host_us", "plain_ms",
                                   "bound_ms", "bound_by")},
-                     plan_tta384_bf16=k1["tta384_bf16"]["chosen"],
+                     **{f"plan_{name}": k1[name]["plan"] for name in ("tta384_bf16",
+                                                                       "tta384_fp32")},
                      plans_ms={name: {kn: v["ms"] for kn, v in k1[name]["plans"].items()}
-                               for name in ("fp32", "bf16", "train_fp32", "train_bf16")},
+                               for name in ("fp32", "bf16", "train_fp32", "train_bf16",
+                                            "tta384_bf16", "tta384_fp32")},
                      ddp_launches_by_plan=ddp_by_plan("k1")),
         kernel_entry("ms_deform_attn_bwd", "combo_avs_torch/csrc/ms_deform_attn_bwd.cu",
                      REPLACES["k2"], {name: n for name, n in by_path("k2").items()
@@ -3320,7 +3374,8 @@ def main(argv=None) -> int:
                         for k in ("max_abs_err", "ms", "call_ms", "host_us")}),
         kernel_entry("gather_points", "combo_avs_torch/csrc/gather.cu", REPLACES["k6"],
                      by_path("k6"), k6,
-                     shape="src [120,37632,2] fp32, idx [120,9408] int64"),
+                     shape="src [120,37632,2] fp32, idx [120,9408] int64",
+                     plan=k6["plan"], floors_ms=k6["floors"]),
     ]
     log(json.dumps({"train": {"s_per_step": tr["s_per_step"], "step_times_s": tr["times"],
                               "max_memory_allocated": tr["peak_bytes"],

@@ -9,20 +9,43 @@
 //
 // What bounds it on this card: memory. One output point costs one index
 // read, one 8-byte source read and one 8-byte store; there is no arithmetic
-// to speak of.
+// to speak of. At the criterion's shape that is 9 MB of index, 9 MB of
+// output and the 9 MB of points the indices select, scattered over a 36 MB
+// source (a top-k keeps a quarter of each row, so about 2 in 3 of the
+// source's 32-byte sectors hold a selected point).
 //
-// Design, for that bound: one thread per output point, a grid of row g by
-// blocks of 256 consecutive p, so the index reads and the output stores are
-// coalesced, and the source reads of a warp fall within one row (the indices
-// come from a top-k of that row). The point's x and y move together as one
-// float2, so the [M, NS, 2] layout is read as it lies: no split into x and y
-// rows before the launch, and one index read per point. Four points per
-// thread, to keep more random loads in flight, measured no faster. The TPU
-// kernel gathered flattened [2M, NS] x and y rows, its one-hot row selection
-// on the MXU and lane-select reduction existing because TPU gathers were
-// serial dynamic slices; the card loads directly. The indices are taken as given,
-// 0 <= idx < NS, as gather_lanes takes them: they come from torch.topk, and
-// a check on the device would cost a synchronisation per call.
+// Design, for that bound (the first design was one thread per point on a
+// (P / 256, G) grid: 0.0203-0.0208 ms against a 0.0081 ms bound on an H100
+// at 700 W; this one 0.0195-0.0198 in the same calls; PERF.md, K6
+// findings, has the floors and the sweep):
+//  * the grid is flat over the G x P points, so no row ends in a part-full
+//    block, and each thread takes V consecutive points: their indices in
+//    one or two 16-byte loads, their V gathers all issued before any store,
+//    and their outputs in 16-byte stores; the point's x and y move together
+//    as one float2, the [G, NS, 2] layout read as it lies;
+//  * the index and the output, read and written once, stream past L2
+//    (ld.global.cs / st.global.cs, evict first) so that the source keeps L2
+//    for the random reads, which go through the read-only path.
+// V and the hints come from ops/gather_cuda.py::launch_plan (4 points a
+// thread with the hints; 1, 2 or 8 points, or no hints, are slower), which
+// takes V = 1 where a pointer is not aligned for the vectors. What holds it
+// at that time, from its floors on the card (scripts/bench_gather_plans.py):
+// an empty kernel on its grid takes 0.0012-0.0014 ms and a streaming copy
+// of the index into the output 0.0074-0.0076, so about 0.012 ms of the
+// 0.019-0.020 go to the 1.1 M dependent random 8-byte reads of the source,
+// a 32-byte sector each, even with the source in L2 (0.0230-0.0234 with it
+// flushed). Tried and dropped:
+// a block per part of a source row, the part copied to shared memory and
+// every index of the row read against it (the source read once, streamed),
+// slower at every part count, warm and cold. The kernel's other
+// modes (an empty kernel on the same grid; a streaming copy of the index
+// into the output) are the floors the design is measured against; no caller
+// of the gather runs them. The TPU kernel gathered flattened [2M, NS] x and
+// y rows, its one-hot row selection on the MXU and lane-select reduction
+// existing because TPU gathers were serial dynamic slices; the card loads
+// directly. The indices are taken as given, 0 <= idx < NS, as gather_lanes
+// takes them: they come from torch.topk, and a check on the device would
+// cost a synchronisation per call.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -30,39 +53,184 @@
 namespace {
 
 constexpr int kThreads = 256;
+enum Mode { kGather = 0, kStream = 1, kEmpty = 2 };
 
-template <typename I>
+template <bool kHints>
+__device__ __forceinline__ long long load_index(const long long* p) {
+  return kHints ? __ldcs(p) : *p;
+}
+template <bool kHints>
+__device__ __forceinline__ long long load_index(const int* p) {
+  return kHints ? __ldcs(p) : *p;
+}
+template <bool kHints>
+__device__ __forceinline__ void store_point(float2* p, float2 v) {
+  if (kHints) __stcs(p, v);
+  else *p = v;
+}
+
+// V indices from p, 16 bytes at a time where V * sizeof(I) >= 16 (p then
+// aligned to 16 bytes), else in one load of V * sizeof(I) bytes.
+template <bool kHints, int V>
+__device__ __forceinline__ void load_indices(const long long* p, long long (&id)[V]) {
+  if constexpr (V == 1) {
+    id[0] = load_index<kHints>(p);
+  } else {
+#pragma unroll
+    for (int j = 0; j < V; j += 2) {
+      const longlong2 v = kHints ? __ldcs(reinterpret_cast<const longlong2*>(p + j))
+                                 : *reinterpret_cast<const longlong2*>(p + j);
+      id[j] = v.x;
+      id[j + 1] = v.y;
+    }
+  }
+}
+template <bool kHints, int V>
+__device__ __forceinline__ void load_indices(const int* p, long long (&id)[V]) {
+  if constexpr (V == 1) {
+    id[0] = load_index<kHints>(p);
+  } else if constexpr (V == 2) {
+    const int2 v = kHints ? __ldcs(reinterpret_cast<const int2*>(p))
+                          : *reinterpret_cast<const int2*>(p);
+    id[0] = v.x;
+    id[1] = v.y;
+  } else {
+#pragma unroll
+    for (int j = 0; j < V; j += 4) {
+      const int4 v = kHints ? __ldcs(reinterpret_cast<const int4*>(p + j))
+                            : *reinterpret_cast<const int4*>(p + j);
+      id[j] = v.x;
+      id[j + 1] = v.y;
+      id[j + 2] = v.z;
+      id[j + 3] = v.w;
+    }
+  }
+}
+
+// V points to p: two a 16-byte store (p aligned to 16 bytes for V >= 2).
+template <bool kHints, int V>
+__device__ __forceinline__ void store_points(float2* p, const float2 (&v)[V]) {
+  if constexpr (V == 1) {
+    store_point<kHints>(p, v[0]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < V; j += 2) {
+      const float4 w = make_float4(v[j].x, v[j].y, v[j + 1].x, v[j + 1].y);
+      if (kHints) __stcs(reinterpret_cast<float4*>(p + j), w);
+      else *reinterpret_cast<float4*>(p + j) = w;
+    }
+  }
+}
+
+// The index as the output's bits (the streaming-copy floor): an int64
+// index fills a float2, an int32 one its x.
+__device__ __forceinline__ float2 as_point(long long i, bool wide) {
+  return wide ? make_float2(__int_as_float((int)i), __int_as_float((int)(i >> 32)))
+              : make_float2(__int_as_float((int)i), 0.f);
+}
+
+// Thread t takes the flat points [V t, V t + V) of the n = G x P; point f
+// is (g, r) = (f / P, f % P). I is the index type, long long or int.
+template <typename I, int V, bool kHints, int kMode>
 __global__ void __launch_bounds__(kThreads)
 gather_kernel(const float2* __restrict__ src,  // [G, NS] points
               const I* __restrict__ idx,       // [G, P]
               float2* __restrict__ out,        // [G, P] points
-              int NS, int P) {
-  const int p = blockIdx.x * kThreads + threadIdx.x;
-  if (p >= P) return;
-  const int64_t g = blockIdx.y;
-  out[g * P + p] = __ldg(src + g * NS + (int64_t)__ldg(idx + g * P + p));
+              int NS, int P, int64_t n) {
+  const int64_t f0 = ((int64_t)blockIdx.x * kThreads + threadIdx.x) * V;
+  if (kMode == kEmpty || f0 >= n) return;
+  const I* ip = idx + f0;
+  long long id[V];
+  float2 v[V];
+  const bool whole = f0 + V <= n;
+  if (whole) {
+    load_indices<kHints, V>(ip, id);
+  } else {
+#pragma unroll
+    for (int j = 0; j < V; ++j) id[j] = f0 + j < n ? load_index<kHints>(ip + j) : 0;
+  }
+  if (kMode == kStream) {
+#pragma unroll
+    for (int j = 0; j < V; ++j) v[j] = as_point(id[j], sizeof(I) == 8);
+  } else {
+    int64_t g = f0 / P;
+    int r = (int)(f0 - g * P);
+#pragma unroll
+    for (int j = 0; j < V; ++j) {  // every gather issued before the first store
+      if (whole || f0 + j < n) v[j] = __ldg(src + g * NS + id[j]);
+      if (++r == P) {
+        r = 0;
+        ++g;
+      }
+    }
+  }
+  if (whole) {
+    store_points<kHints, V>(out + f0, v);
+  } else {
+#pragma unroll
+    for (int j = 0; j < V; ++j)
+      if (f0 + j < n) store_point<kHints>(out + f0 + j, v[j]);
+  }
+}
+
+template <typename I, int V, bool kHints>
+void launch(const void* src, const void* idx, void* out, int NS, int P, int64_t n, int mode,
+            cudaStream_t s) {
+  const int64_t threads = (n + V - 1) / V;
+  const unsigned grid = (unsigned)((threads + kThreads - 1) / kThreads);
+  const float2* sp = static_cast<const float2*>(src);
+  const I* ip = static_cast<const I*>(idx);
+  float2* op = static_cast<float2*>(out);
+  if (mode == kGather)
+    gather_kernel<I, V, kHints, kGather><<<grid, kThreads, 0, s>>>(sp, ip, op, NS, P, n);
+  else if (mode == kStream)
+    gather_kernel<I, V, kHints, kStream><<<grid, kThreads, 0, s>>>(sp, ip, op, NS, P, n);
+  else
+    gather_kernel<I, V, kHints, kEmpty><<<grid, kThreads, 0, s>>>(sp, ip, op, NS, P, n);
+}
+
+template <typename I>
+int dispatch(const void* src, const void* idx, void* out, int NS, int P, int64_t n, int vec,
+             int hints, int mode, cudaStream_t s) {
+#define CASE(V)                                                          \
+  if (vec == V) {                                                        \
+    if (hints) launch<I, V, true>(src, idx, out, NS, P, n, mode, s);     \
+    else launch<I, V, false>(src, idx, out, NS, P, n, mode, s);          \
+    return (int)cudaGetLastError();                                      \
+  }
+  CASE(1)
+  CASE(2)
+  CASE(4)
+  CASE(8)
+#undef CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // src [G, NS, 2] float32 (8-byte aligned), idx [G, P] int64 (index_bytes = 8)
 // or int32 (index_bytes = 4), out [G, P, 2] float32; all contiguous on the
-// current device; G <= 65535 (the grid's second dimension).
-// Returns cudaGetLastError() after the launch (0 = launched).
+// current device. vec (1, 2, 4 or 8) points a thread, hints (0 or 1) the
+// streaming cache hints on the index and the output, mode 0 the gather (1
+// and 2 the floors: a streaming copy of the index into the output, an empty
+// kernel on the same grid), as ops/gather_cuda.py::launch_plan gives them.
+// For vec > 1 the index must be aligned to min(16, vec * index_bytes) bytes
+// and the output to 16. Returns cudaGetLastError() after the launch (0 =
+// launched), or cudaErrorInvalidValue for arguments it does not take.
 extern "C" int gather_points(const void* src, const void* idx, void* out, int G, int NS, int P,
-                             int index_bytes, void* stream) {
-  if (G < 1 || G > 65535 || NS < 1 || P < 1 || (index_bytes != 4 && index_bytes != 8))
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)((P + kThreads - 1) / kThreads), (unsigned)G);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (index_bytes == 8) {
-    gather_kernel<int64_t><<<grid, kThreads, 0, s>>>(
-        static_cast<const float2*>(src), static_cast<const int64_t*>(idx),
-        static_cast<float2*>(out), NS, P);
-  } else {
-    gather_kernel<int32_t><<<grid, kThreads, 0, s>>>(
-        static_cast<const float2*>(src), static_cast<const int32_t*>(idx),
-        static_cast<float2*>(out), NS, P);
+                             int index_bytes, int vec, int hints, int mode, void* stream) {
+  const int bad = (int)cudaErrorInvalidValue;
+  if (G < 1 || NS < 1 || P < 1 || (index_bytes != 4 && index_bytes != 8) || mode < 0 ||
+      mode > 2 || (hints != 0 && hints != 1))
+    return bad;
+  const int64_t n = (int64_t)G * P;
+  if ((n + vec - 1) / vec / kThreads >= (int64_t)1 << 31) return bad;
+  if (vec > 1) {
+    const uintptr_t ia = (uintptr_t)idx, oa = (uintptr_t)out;
+    const int need = vec * index_bytes < 16 ? vec * index_bytes : 16;
+    if (ia % need || oa % 16) return bad;
   }
-  return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return index_bytes == 8 ? dispatch<long long>(src, idx, out, NS, P, n, vec, hints, mode, s)
+                          : dispatch<int>(src, idx, out, NS, P, n, vec, hints, mode, s);
 }

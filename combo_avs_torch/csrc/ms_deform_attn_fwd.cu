@@ -15,10 +15,10 @@
 // version. Every kernel here sums a query's terms in the same order (level,
 // point, corner), in fp32, and stores in value's type (fp32 or bf16).
 //
-// Two kernels; ops/deform_attn_cuda.py::fwd_launch_plan picks one, and the
-// staged kernel's query chunk, from the shapes, the dtype and the card's
-// opt-in shared-memory limit and SM count, and this file only executes the
-// plan it is given.
+// Two kernels and three plans; ops/deform_attn_cuda.py::fwd_launch_plan
+// picks one, and the staged kernel's query chunk, block size and channel
+// groups, from the shapes, the dtype and the card's opt-in shared-memory
+// limit and SM count, and this file only executes the plan it is given.
 //
 //  * "global" (the first design): one warp per (b, q, m), lanes over the D
 //    channels, each corner a D-element row gathered from global memory (L2:
@@ -57,6 +57,24 @@
 //    rotated by query, no faster; one level staged at a time (the largest
 //    level's rows, so two fp32 blocks share an SM, partial sums in shared
 //    memory between levels), 1.4-1.5x slower everywhere.
+//  * "grouped": the staged kernel where the whole slice and 32 warps' tables
+//    do not fit one block (TTA's 384^2 branch: S = 3024, 193,536 B of bf16
+//    slice, 387,072 B of fp32). A block of 24-32 warps stages the whole
+//    slice or one of `groups` channel groups of it, [S, D / groups], and
+//    computes those channels of its chunk's queries; the groups of a (b, m,
+//    chunk) are neighbours in the grid, so the second reads the locations
+//    and weights from L2, and each output row is still stored once, a
+//    group's channels by its block. A query keeps the whole slice's G lanes,
+//    each taking D / (groups * G) channels (2 at D = 32 and 2 groups: a
+//    float2 or a bf16 pair), so the tables a warp stay those of the staged
+//    plan. The plan takes the fewest groups whose block holds 24 warps or
+//    more: the whole bf16 slice at 24 warps, 2 fp32 groups at 24 warps
+//    (230,400 B each), in 4 and 2 query chunks. Measured against the other
+//    layouts (scripts/bench_deform_fwd_plans.py; PERF.md, K1 findings): 2
+//    bf16 groups at 32 warps 13% slower, 4 groups or 16-20 warps slower
+//    still. Tried and dropped: D / groups / 4 lanes a query (more queries a
+//    warp, so the tables grow as the rows shrink), slower at every count;
+//    the first queries' tables made while the staging copies land, slower.
 //  * corners outside their level have weight 0 and are skipped (no read), as
 //    in the plain version's zero padding.
 // The TPU kernel's tent matrices, one-hot matmuls, 128-lane level padding,
@@ -173,6 +191,18 @@ struct Row<float, 1> {
 };
 
 template <>
+struct Row<float, 2> {
+  static __device__ __forceinline__ void fma(float (&acc)[2], float w, const float* p) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    acc[0] = fmaf(w, v.x, acc[0]);
+    acc[1] = fmaf(w, v.y, acc[1]);
+  }
+  static __device__ __forceinline__ void put(float* p, const float (&acc)[2]) {
+    *reinterpret_cast<float2*>(p) = make_float2(acc[0], acc[1]);
+  }
+};
+
+template <>
 struct Row<float, 4> {
   static __device__ __forceinline__ void fma(float (&acc)[4], float w, const float* p) {
     const float4 v = *reinterpret_cast<const float4*>(p);
@@ -256,16 +286,23 @@ __device__ __forceinline__ void stage_rows(T* dst, const T* src, int rows, int D
   }
 }
 
-// blockIdx.x = m * chunks + chunk, blockIdx.y = b; blockDim.x / 32 warps.
-// Dynamic shared memory: the slice ([S, D] of T, `slice_bytes` reserved, a
+// blockIdx.x = (m * chunks + chunk) * groups + cg, blockIdx.y = b;
+// blockDim.x / 32 warps. The block stages and computes the channels
+// [cg * Dg, (cg + 1) * Dg) of head m: the whole slice, Dg = D, in the
+// staged plan (kGrouped false: groups 1 and cg 0 are constants, so the
+// plan compiles to the code it had before groups existed; with them at run
+// time the bf16 kernel spilled and ran slower at 224^2), a channel group
+// of it, Dg = D / groups, in the grouped plan. The groups of one (head, chunk) are neighbours in the
+// grid, so the locations and weights that each reads in turn come from L2.
+// Dynamic shared memory: the rows ([S, Dg] of T, `slice_bytes` reserved, a
 // multiple of 16), then each warp's corner table (32 / G queries x L * P
 // points).
-template <typename T, int kVec>
+template <typename T, int kVec, bool kGrouped>
 __global__ void __launch_bounds__(1024)
 ms_deform_attn_fwd_staged(const T* __restrict__ value, const float* __restrict__ loc,
                           const float* __restrict__ attw, T* __restrict__ out, int S, int Lq,
-                          int M, int D, int L, int P, Levels lv, int chunk, int chunks, int G,
-                          int slice_bytes, int vec16) {
+                          int M, int D, int L, int P, Levels lv, int chunk, int chunks,
+                          int groups, int G, int slice_bytes, int vec16) {
   extern __shared__ __align__(16) unsigned char smem[];
   T* vs = reinterpret_cast<T*>(smem);
   const int warps = blockDim.x >> 5;
@@ -276,19 +313,22 @@ ms_deform_attn_fwd_staged(const T* __restrict__ value, const float* __restrict__
   Corners* table = reinterpret_cast<Corners*>(smem + slice_bytes);
   Corners* mine_tab = table + (warp * qpw + slot) * LP;  // this lane's query's points
 
-  const int m = blockIdx.x / chunks, b = blockIdx.y;
-  const int q_begin = (blockIdx.x - m * chunks) * chunk;
+  const int mc = kGrouped ? blockIdx.x / groups : blockIdx.x;
+  const int cg = kGrouped ? blockIdx.x - mc * groups : 0;
+  const int Dg = kGrouped ? D / groups : D;  // the channels staged
+  const int m = mc / chunks, b = blockIdx.y;
+  const int q_begin = (mc - m * chunks) * chunk;
   const int q_end = min(Lq, q_begin + chunk);
   const int gl = lane & (G - 1);  // this lane's place in its query's group
   const int64_t row_stride = (int64_t)M * D;
-  const T* vslice = value + (int64_t)b * S * row_stride + (int64_t)m * D;
+  const T* vslice = value + (int64_t)b * S * row_stride + (int64_t)m * D + cg * Dg;
 
   // rows [row0, S) are staged, row0 = lv.start[0] = 0, and corner offsets
   // are taken from row0. Written with the literal 0 instead, the fp32 kernel
   // compiled to another schedule that ran 8-10% slower
   // (scripts/bench_deform_fwd_plans.py; PERF.md, K1 findings).
   const int row0 = lv.start[0];
-  stage_rows(vs, vslice + row0 * row_stride, S - row0, D, row_stride, vec16 != 0);
+  stage_rows(vs, vslice + row0 * row_stride, S - row0, Dg, row_stride, vec16 != 0);
   __syncthreads();
 
   for (int qb = q_begin + warp * qpw; qb < q_end; qb += warps * qpw) {
@@ -320,7 +360,7 @@ ms_deform_attn_fwd_staged(const T* __restrict__ value, const float* __restrict__
         for (int k = 0; k < 4; ++k) {
           const int xi = x0 + (k & 1), yi = y0 + (k >> 1);
           const bool valid = xi >= 0 && xi < W && yi >= 0 && yi < H;
-          o[k] = valid ? (base + yi * W + xi) * D : 0;
+          o[k] = valid ? (base + yi * W + xi) * Dg : 0;
           w[k] = valid ? a * (wx[k & 1] * wy[k >> 1]) : 0.f;
         }
         mine_tab[i] = Corners{make_int4(o[0], o[1], o[2], o[3]),
@@ -329,8 +369,8 @@ ms_deform_attn_fwd_staged(const T* __restrict__ value, const float* __restrict__
     }
     __syncwarp();
     if (mine) {
-      T* orow = out + ((int64_t)b * Lq + q) * row_stride + (int64_t)m * D;
-      for (int c = gl * kVec; c < D; c += G * kVec) {
+      T* orow = out + ((int64_t)b * Lq + q) * row_stride + (int64_t)m * D + cg * Dg;
+      for (int c = gl * kVec; c < Dg; c += G * kVec) {
         float acc[kVec];
 #pragma unroll
         for (int v = 0; v < kVec; ++v) acc[v] = 0.f;
@@ -351,33 +391,36 @@ ms_deform_attn_fwd_staged(const T* __restrict__ value, const float* __restrict__
 
 // Raise kernel's dynamic shared-memory limit to `bytes` on the current
 // device, once per device and size.
-template <typename T, int kVec>
+template <typename T, int kVec, bool kGrouped>
 cudaError_t allow_smem(int bytes) {
   static int allowed[kMaxDevices] = {};
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (dev < kMaxDevices && allowed[dev] >= bytes) return cudaSuccess;
-  e = cudaFuncSetAttribute(ms_deform_attn_fwd_staged<T, kVec>,
+  e = cudaFuncSetAttribute(ms_deform_attn_fwd_staged<T, kVec, kGrouped>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) cudaGetLastError();  // so that the next launch does not report it
   else if (dev < kMaxDevices) allowed[dev] = bytes;
   return e;
 }
 
-template <typename T, int kVec>
+template <typename T, int kVec, bool kGrouped>
 int launch_staged(const void* value, const void* loc, const void* attw, void* out, int B, int S,
                   int Lq, int M, int D, int L, int P, const Levels& lv, int threads, int chunk,
-                  int grid_x, int G, int slice_bytes, int smem, cudaStream_t s) {
+                  int grid_x, int groups, int G, int slice_bytes, int smem, cudaStream_t s) {
   if (smem > 48 * 1024) {
-    const cudaError_t e = allow_smem<T, kVec>(smem);
+    const cudaError_t e = allow_smem<T, kVec, kGrouped>(smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const int vec16 = (D * (int)sizeof(T)) % 16 == 0 && reinterpret_cast<uintptr_t>(value) % 16 == 0;
-  ms_deform_attn_fwd_staged<T, kVec><<<dim3(grid_x, B), threads, smem, s>>>(
+  // 16-byte copies need 16-byte staged rows (then the row stride and every
+  // group's first channel are 16-byte multiples too) and a 16-byte aligned value
+  const int vec16 = (D / groups * (int)sizeof(T)) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(value) % 16 == 0;
+  ms_deform_attn_fwd_staged<T, kVec, kGrouped><<<dim3(grid_x, B), threads, smem, s>>>(
       static_cast<const T*>(value), static_cast<const float*>(loc),
       static_cast<const float*>(attw), static_cast<T*>(out), S, Lq, M, D, L, P, lv, chunk,
-      grid_x / M, G, slice_bytes, vec16);
+      grid_x / (M * groups), groups, G, slice_bytes, vec16);
   return (int)cudaGetLastError();
 }
 
@@ -385,26 +428,27 @@ int launch_staged(const void* value, const void* loc, const void* attw, void* ou
 
 // value and out float32 (dtype 0) or bfloat16 (dtype 1); loc and attw
 // float32. plan holds B, S, Lq, M, D, L, P, dtype, the kernel (0 global, 1
-// staged), threads per block, the query chunk (queries a
+// staged, 2 grouped), threads per block, the query chunk (queries a
 // block; 0 for global), grid x (blocks per frame; the grid has B rows),
-// dynamic shared-memory bytes, then (H_l, W_l) for the L <= 4 levels in
-// value's level order (ops/deform_attn_cuda.py::fwd_plan_args). Returns
+// dynamic shared-memory bytes, the channel groups a (frame, head) (1 for
+// staged and global), then (H_l, W_l) for the L <= 4 levels in value's level
+// order (ops/deform_attn_cuda.py::fwd_plan_args). Returns
 // cudaGetLastError() after the launch (0 = launched), or the error that
 // stopped it.
 extern "C" int ms_deform_attn_fwd(const void* value, const void* loc, const void* attw, void* out,
                                   const int* plan, void* stream) {
   const int B = plan[0], S = plan[1], Lq = plan[2], M = plan[3], D = plan[4], L = plan[5],
             P = plan[6], dtype = plan[7], kernel = plan[8], threads = plan[9], chunk = plan[10],
-            grid_x = plan[11], smem = plan[12];
+            grid_x = plan[11], smem = plan[12], groups = plan[13];
   const int bad = (int)cudaErrorInvalidValue;
   if (L < 1 || L > kMaxLevels || P < 1 || L * P > 32 || B < 1 || B > 65535 || Lq < 1 || M < 1 ||
-      D < 1 || grid_x < 1 || (dtype != 0 && dtype != 1))
+      D < 1 || grid_x < 1 || (dtype != 0 && dtype != 1) || groups < 1 || D % groups)
     return bad;
   Levels lv = {};
   int start = 0;
   for (int l = 0; l < L; ++l) {
-    lv.h[l] = plan[13 + 2 * l];
-    lv.w[l] = plan[14 + 2 * l];
+    lv.h[l] = plan[14 + 2 * l];
+    lv.w[l] = plan[15 + 2 * l];
     lv.start[l] = start;
     start += lv.h[l] * lv.w[l];
   }
@@ -412,7 +456,7 @@ extern "C" int ms_deform_attn_fwd(const void* value, const void* loc, const void
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (kernel == 0) {
     if (threads != kWarpsPerBlock * 32 || (int64_t)grid_x * kWarpsPerBlock < (int64_t)Lq * M ||
-        smem != 0)
+        smem != 0 || groups != 1)
       return bad;
     if (dtype == 1)
       ms_deform_attn_fwd_kernel<__nv_bfloat16><<<dim3(grid_x, B), threads, 0, s>>>(
@@ -425,24 +469,45 @@ extern "C" int ms_deform_attn_fwd(const void* value, const void* loc, const void
           static_cast<const float*>(attw), static_cast<float*>(out), S, Lq, M, D, L, P, lv);
     return (int)cudaGetLastError();
   }
-  if (kernel != 1) return bad;
-  // the staged kernel's layout, as fwd_launch_plan computes it
+  if (kernel < 1 || kernel > 2 || (kernel == 1 && groups != 1)) return bad;
+  // the staged kernel's layout, as fwd_launch_plan computes it: G lanes a
+  // query, each taking vec channels a step, the staged plan's for the whole
+  // D; a grouped block keeps those G lanes over its Dg = D / groups channels
+  // (vec = Dg / G of them a lane), so its corner tables are the staged
+  // plan's at the same warps
   const int esize = dtype == 1 ? 2 : 4;
-  const int vec = D % 4 == 0 ? 4 : dtype == 1 && D % 2 == 0 ? 2 : 1;
+  const int Dg = D / groups;
+  int vec = D % 4 == 0 ? 4 : dtype == 1 && D % 2 == 0 ? 2 : 1;
   const int lanes = (D + vec - 1) / vec;
   int G = 1;
   while (G < lanes && G < 32) G *= 2;
-  const int64_t slice_bytes = ((int64_t)S * D * esize + 15) / 16 * 16;
+  if (groups > 1) {
+    if (Dg % G) return bad;
+    vec = Dg / G;
+    if (vec != 1 && vec != 2 && vec != 4) return bad;
+  }
+  const int64_t slice_bytes = ((int64_t)S * Dg * esize + 15) / 16 * 16;
   const int64_t want = slice_bytes + (int64_t)threads / 32 * (32 / G) * L * P * 32;
   if (threads < 32 || threads > 1024 || threads % 32 || chunk < 1 ||
-      (int64_t)grid_x != (int64_t)M * ((Lq + chunk - 1) / chunk) || want != smem)
+      (int64_t)grid_x != (int64_t)M * groups * ((Lq + chunk - 1) / chunk) || want != smem)
     return bad;
-#define LAUNCH_STAGED(T, V)                                                                 \
-  launch_staged<T, V>(value, loc, attw, out, B, S, Lq, M, D, L, P, lv, threads, chunk,      \
-                      grid_x, G, (int)slice_bytes, smem, s)
-  if (dtype == 0) return vec == 4 ? LAUNCH_STAGED(float, 4) : LAUNCH_STAGED(float, 1);
-  if (vec == 4) return LAUNCH_STAGED(__nv_bfloat16, 4);
-  if (vec == 2) return LAUNCH_STAGED(__nv_bfloat16, 2);
-  return LAUNCH_STAGED(__nv_bfloat16, 1);
+#define LAUNCH_STAGED(T, V, GR)                                                             \
+  launch_staged<T, V, GR>(value, loc, attw, out, B, S, Lq, M, D, L, P, lv, threads, chunk,  \
+                          grid_x, groups, G, (int)slice_bytes, smem, s)
+  if (groups == 1) {  // whole rows, vec channels a lane as D gives them
+    if (dtype == 0) return vec == 4 ? LAUNCH_STAGED(float, 4, false)
+                                    : LAUNCH_STAGED(float, 1, false);
+    if (vec == 4) return LAUNCH_STAGED(__nv_bfloat16, 4, false);
+    if (vec == 2) return LAUNCH_STAGED(__nv_bfloat16, 2, false);
+    return LAUNCH_STAGED(__nv_bfloat16, 1, false);
+  }
+  if (dtype == 0) {
+    if (vec == 4) return LAUNCH_STAGED(float, 4, true);
+    if (vec == 2) return LAUNCH_STAGED(float, 2, true);
+    return LAUNCH_STAGED(float, 1, true);
+  }
+  if (vec == 4) return LAUNCH_STAGED(__nv_bfloat16, 4, true);
+  if (vec == 2) return LAUNCH_STAGED(__nv_bfloat16, 2, true);
+  return LAUNCH_STAGED(__nv_bfloat16, 1, true);
 #undef LAUNCH_STAGED
 }

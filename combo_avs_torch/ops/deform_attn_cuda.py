@@ -8,12 +8,14 @@ backward launches `csrc/ms_deform_attn_bwd.cu` (or raise); a CPU tensor takes
 the plain version `ops.deform_attn.ms_deform_attn_plain`, differentiated by
 autograd. There is no fallback from one to the other.
 
-The forward has two kernels, "staged" (each (frame, head) value slice
-copied to shared memory, a block per (frame, head, query chunk)) and
-"global" (corner rows gathered from global memory); `fwd_launch_plan` picks
-one, and the staged kernel's query chunk. The backward has two kernels,
-"level_slice" (dvalue summed per (frame, head, level) in shared memory) and
-"global" (global atomics); `bwd_launch_plan` picks one. Both plans are pure
+The forward has three plans on two kernels: "staged" (each (frame, head)
+value slice copied to shared memory, a 32-warp block per (frame, head,
+query chunk)), "grouped" (the staged kernel where that block does not fit:
+a smaller block on the whole slice or on a channel group of it) and
+"global" (corner rows gathered from global memory); `fwd_launch_plan`
+picks one, and the query chunk, block size and groups. The backward has
+two kernels, "level_slice" (dvalue summed per (frame, head, level) in shared
+memory) and "global" (global atomics); `bwd_launch_plan` picks one. Both plans are pure
 functions of the shapes and the card's opt-in shared-memory limit (and, for
 the forward, its SM count), made once per shape, and the C functions only
 execute them.
@@ -42,12 +44,12 @@ MAX_LEVELS = 4
 
 launches = 0
 bwd_launches = 0
-fwd_plan_launches = {"staged": 0, "global": 0}
+fwd_plan_launches = {"staged": 0, "grouped": 0, "global": 0}
 bwd_plan_launches = {"level_slice": 0, "global": 0}
 bwd_dtype_launches = {"float32": 0, "bfloat16": 0}
 
 # the forward's launch plans (csrc/ms_deform_attn_fwd.cu executes them)
-FWD_KERNELS = ("global", "staged")  # the C function's kernel codes 0, 1
+FWD_KERNELS = ("global", "staged", "grouped")  # the C function's kernel codes 0, 1, 2
 FWD_GLOBAL_THREADS = 256  # the global kernel: 8 warps, one (q, m) pair each
 STAGED_THREADS = 1024  # the staged kernel: 32 warps (8 and 16 are slower)
 # query chunks per (frame, head): the fewest, up to MAX_CHUNKS, whose blocks
@@ -56,6 +58,15 @@ STAGED_THREADS = 1024  # the staged kernel: 32 warps (8 and 16 are slower)
 # heads, 2 at 40, on 132 SMs, in fp32 and bf16)
 MAX_CHUNKS = 8
 WAVE_FILL = 0.9
+# the grouped plan, for a slice that the staged plan's 32-warp block cannot
+# hold: the fewest channel groups (1: the whole slice) whose block holds at
+# least this many warps, a multiple of 4 (the SM's four schedulers), and
+# the fewest chunks whose blocks fill their waves to GROUPED_WAVE_FILL
+# (scripts/bench_deform_fwd_plans.py at TTA's 384^2 shapes: the whole bf16
+# slice at 24 warps in 4 chunks, 2 fp32 groups at 24 warps in 2 chunks;
+# more groups, fewer warps or fewer chunks are slower)
+GROUPED_MIN_WARPS = 24
+GROUPED_WAVE_FILL = 0.95
 
 # the backward's launch plans (csrc/ms_deform_attn_bwd.cu executes them)
 GLOBAL_THREADS = 256  # the global kernel: 8 warps, one (q, m) pair each
@@ -102,14 +113,20 @@ def sm_count(device_index: int) -> int:
 class FwdLaunchPlan(NamedTuple):
     """How `csrc/ms_deform_attn_fwd.cu` computes K1.
 
-    kernel: "staged" (one block per (frame, head, query chunk) copies the
-        head's whole value slice into dynamic shared memory and computes the
-        chunk's queries from it) or "global" (one warp per (frame, query,
-        head) gathers corner rows from global memory);
+    kernel: "staged" (one 32-warp block per (frame, head, query chunk)
+        copies the head's whole value slice into dynamic shared memory and
+        computes the chunk's queries from it), "grouped" (the staged kernel
+        where that block does not fit: a block of 24-32 warps per (frame,
+        head, query chunk, channel group) stages the slice's D / groups
+        channels of that group, all of them when groups is 1) or "global"
+        (one warp per (frame, query, head) gathers corner rows from global
+        memory);
     threads: threads per block;
     chunk: queries per block (0 for "global");
     blocks_per_frame: the grid's x extent; the grid has one row per frame;
     smem_bytes: dynamic shared memory per block (`staged_bytes`; 0 for
+        "global");
+    groups: channel groups per (frame, head) (1 for "staged" and
         "global")."""
 
     kernel: str
@@ -117,37 +134,83 @@ class FwdLaunchPlan(NamedTuple):
     chunk: int
     blocks_per_frame: int
     smem_bytes: int
+    groups: int = 1
 
 
 def staged_lanes(D: int, esize: int) -> int:
-    """Lanes a query takes in the staged kernel: one per 4 channels when D
-    is a multiple of 4 (a float4, or 4 bf16 values), else one per bf16 pair
-    (even D) or per channel; rounded up to a power of two and at most 32 (a
-    lane then loops over the channels)."""
+    """Lanes a query takes in the staged kernel over D staged channels: one
+    per 4 channels when D is a multiple of 4 (a float4, or 4 bf16 values),
+    else one per bf16 pair (even D) or per channel; rounded up to a power of
+    two and at most 32 (a lane then loops over the channels)."""
     vec = 4 if D % 4 == 0 else 2 if esize == 2 and D % 2 == 0 else 1
     return min(32, 1 << (-(-D // vec) - 1).bit_length())
 
 
 def staged_bytes(levels: Sequence[Tuple[int, int]], D: int, P: int, esize: int,
-                 threads: int = STAGED_THREADS) -> int:
-    """The staged kernel's dynamic shared memory: the (frame, head) slice, S
-    rows of D elements of `esize` bytes, rounded up to 16 bytes, and each
-    warp's corner table, 32 B a point for each of its 32 / lanes queries."""
+                 threads: int = STAGED_THREADS, groups: int = 1) -> int:
+    """The staged kernel's dynamic shared memory for a block that stages Dg
+    = D / groups channels: the rows, S of Dg elements of `esize` bytes,
+    rounded up to 16 bytes, and each warp's corner table, 32 B a point for
+    each of its 32 / staged_lanes(D) queries (a grouped block keeps the
+    whole slice's lanes a query, each lane taking fewer channels, so its
+    tables are the staged plan's at the same warps)."""
     S = sum(h * w for h, w in levels)
     table = threads // 32 * (32 // staged_lanes(D, esize)) * len(levels) * P * 32
-    return -(-S * D * esize // 16) * 16 + table
+    return -(-S * (D // groups) * esize // 16) * 16 + table
 
 
-def staged_chunks(B: int, Lq: int, M: int, sms: int) -> int:
+def grouped_fits(D: int, esize: int, groups: int) -> bool:
+    """Whether D splits into `groups` channel groups for the grouped plan
+    (1: the whole slice): for 2 groups or more, each group's channels a
+    multiple of the staged lanes, at most 4 a lane, and its rows a multiple
+    of 16 bytes (copied 16 bytes at a time)."""
+    if groups == 1:
+        return True
+    lanes = staged_lanes(D, esize)
+    Dg = D // groups
+    return (D % groups == 0 and Dg % lanes == 0 and Dg // lanes in (1, 2, 4)
+            and Dg * esize % 16 == 0)
+
+
+def staged_chunks(B: int, Lq: int, M: int, sms: int, groups: int = 1,
+                  wave_fill: float = WAVE_FILL) -> int:
     """Query chunks per (frame, head) for the staged kernel: the fewest, up
-    to MAX_CHUNKS, whose B * M * chunks blocks fill their waves of one block
-    per SM to WAVE_FILL, else the count that fills them best."""
+    to MAX_CHUNKS, whose B * M * groups * chunks blocks fill their waves of
+    one block per SM to `wave_fill`, else the count that fills them best."""
     def fill(chunks):
-        blocks = B * M * -(-Lq // -(-Lq // chunks))
+        blocks = B * M * groups * -(-Lq // -(-Lq // chunks))
         return blocks / (-(-blocks // sms) * sms)
 
     counts = range(1, min(MAX_CHUNKS, Lq) + 1)
-    return next((c for c in counts if fill(c) >= WAVE_FILL), max(counts, key=fill))
+    return next((c for c in counts if fill(c) >= wave_fill), max(counts, key=fill))
+
+
+def staged_plan(levels: Sequence[Tuple[int, int]], Lq: int, M: int, D: int, P: int, esize: int,
+                threads: int, chunks: int, groups: int = 1,
+                kernel: str = "staged") -> FwdLaunchPlan:
+    """The staged kernel under plan `kernel` ("staged" takes groups 1) at a
+    given block size, query chunk count and channel groups per (frame,
+    head)."""
+    chunk = -(-Lq // chunks)
+    return FwdLaunchPlan(kernel, threads, chunk, M * groups * -(-Lq // chunk),
+                         staged_bytes(levels, D, P, esize, threads, groups), groups)
+
+
+def grouped_layout(levels: Sequence[Tuple[int, int]], D: int, P: int, esize: int,
+                   smem_optin: int):
+    """(groups, threads) of the grouped plan: the fewest channel groups that
+    `grouped_fits` takes (1 first: the whole slice) whose rows and the
+    corner tables of at least GROUPED_MIN_WARPS warps fit the opt-in limit,
+    at the most warps that fit, a multiple of 4 up to 32; None if none
+    does."""
+    for groups in range(1, D + 1):
+        if not grouped_fits(D, esize, groups):
+            continue
+        fits = [w for w in range(32, GROUPED_MIN_WARPS - 1, -4)
+                if staged_bytes(levels, D, P, esize, 32 * w, groups) <= smem_optin]
+        if fits:
+            return groups, 32 * fits[0]
+    return None
 
 
 def fwd_launch_plan(levels: Sequence[Tuple[int, int]], B: int, Lq: int, M: int, D: int, P: int,
@@ -156,25 +219,32 @@ def fwd_launch_plan(levels: Sequence[Tuple[int, int]], B: int, Lq: int, M: int, 
     frames, the query count, heads, channels, points per level, value's
     element size (4 fp32, 2 bf16), and the card's opt-in shared-memory limit
     per block and SM count: "staged" when its shared memory fits that limit,
-    its queries cut into `staged_chunks`, else "global". A caller names
-    another plan by passing it to `ms_deform_attn_cuda`."""
-    smem = staged_bytes(levels, D, P, esize)
-    if smem > smem_optin:
-        return FwdLaunchPlan("global", FWD_GLOBAL_THREADS, 0,
-                             -(-(Lq * M) // (FWD_GLOBAL_THREADS // 32)), 0)
-    chunk = -(-Lq // staged_chunks(B, Lq, M, sms))
-    return FwdLaunchPlan("staged", STAGED_THREADS, chunk, M * -(-Lq // chunk), smem)
+    its queries cut into `staged_chunks`; else "grouped" when a smaller
+    block of the whole slice or of a channel group fits (`grouped_layout`),
+    its chunks counted over the groups' blocks; else "global". A caller
+    names another plan by passing it to `ms_deform_attn_cuda`."""
+    if staged_bytes(levels, D, P, esize) <= smem_optin:
+        return staged_plan(levels, Lq, M, D, P, esize, STAGED_THREADS,
+                           staged_chunks(B, Lq, M, sms))
+    layout = grouped_layout(levels, D, P, esize, smem_optin)
+    if layout is not None:
+        groups, threads = layout
+        return staged_plan(levels, Lq, M, D, P, esize, threads,
+                           staged_chunks(B, Lq, M, sms, groups, GROUPED_WAVE_FILL), groups,
+                           "grouped")
+    return FwdLaunchPlan("global", FWD_GLOBAL_THREADS, 0,
+                         -(-(Lq * M) // (FWD_GLOBAL_THREADS // 32)), 0)
 
 
 def fwd_plan_args(B: int, S: int, Lq: int, M: int, D: int, P: int, esize: int,
                   levels: Sequence[Tuple[int, int]], plan: FwdLaunchPlan):
     """The forward C function's int array: B, S, Lq, M, D, L, P, dtype (0
-    fp32, 1 bf16), the plan's kernel (0 global, 1 staged),
-    threads, query chunk, blocks per frame and shared-memory bytes, then
-    (H_l, W_l) per level."""
-    return (ctypes.c_int * (13 + 2 * len(levels)))(
+    fp32, 1 bf16), the plan's kernel (0 global, 1 staged, 2 grouped),
+    threads, query chunk, blocks per frame, shared-memory bytes and channel
+    groups, then (H_l, W_l) per level."""
+    return (ctypes.c_int * (14 + 2 * len(levels)))(
         B, S, Lq, M, D, len(levels), P, int(esize == 2), FWD_KERNELS.index(plan.kernel),
-        plan.threads, plan.chunk, plan.blocks_per_frame, plan.smem_bytes,
+        plan.threads, plan.chunk, plan.blocks_per_frame, plan.smem_bytes, plan.groups,
         *[n for hw in levels for n in hw])
 
 

@@ -7,13 +7,20 @@ with 0 <= idx < NS. A CPU tensor takes the plain version, `torch.gather`; a
 CUDA tensor launches the kernel, which takes the indices as given (they come
 from `torch.topk`; a range check on the device would synchronise every call).
 
-`launches` counts the kernel's launches in this process, incremented where it
-is launched and nowhere else.
+`launch_plan` sets the kernel's points a thread and its cache hints, a pure
+function of the index's element size and the pointers' alignment.
+`gather_floor_cuda` runs the kernel's two floors (an empty kernel on the
+same grid, a streaming copy of the index into the output) for measurement;
+no caller of the gather runs them.
+
+`launches` counts the gather's launches in this process, incremented where
+it is launched and nowhere else (not by the floors).
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -22,9 +29,31 @@ from combo_avs_torch.ops import _build
 SOURCE = "gather.cu"
 
 launches = 0
-# gather_points(src, idx, out, G, NS, P, index_bytes, stream)
-ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+# gather_points(src, idx, out, G, NS, P, index_bytes, vec, hints, mode, stream)
+ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+MODES = ("gather", "stream", "empty")  # the C function's mode codes 0, 1, 2
+# points a thread, and whether the index and the output stream past L2, where
+# the pointers allow them (scripts/bench_gather_plans.py: fastest of 1, 2, 4
+# and 8 with and without the hints at the criterion's shape)
+PLAN_VEC, PLAN_HINTS = 4, True
 _bound = None  # the ctypes function, bound once per process
+
+
+class GatherPlan(NamedTuple):
+    """How `csrc/gather.cu` runs: `vec` consecutive points a thread (1, 2, 4
+    or 8) on a flat grid of 256-thread blocks over G x P, the index and the
+    output streamed past L2 (`hints`) or not."""
+
+    vec: int
+    hints: bool
+
+
+def launch_plan(index_bytes: int, idx_ptr: int, out_ptr: int) -> GatherPlan:
+    """PLAN_VEC points a thread with PLAN_HINTS, or one point a thread
+    where the index is not aligned to min(16, PLAN_VEC * index_bytes) bytes or
+    the output to 16 (then it takes no vector loads or stores)."""
+    aligned = idx_ptr % min(16, PLAN_VEC * index_bytes) == 0 and out_ptr % 16 == 0
+    return GatherPlan(PLAN_VEC if aligned else 1, PLAN_HINTS)
 
 
 def gather_points_plain(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -41,33 +70,60 @@ def _kernel():
     return _bound
 
 
-def gather_points_cuda(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Launch the kernel on contiguous CUDA tensors: src [G, NS, 2] float32,
-    idx [G, P] int64 or int32 -> [G, P, 2] float32."""
-    global launches
+def _check(src: torch.Tensor, idx: torch.Tensor, name: str):
     if not (src.is_cuda and idx.is_cuda) or src.get_device() != idx.get_device():
-        raise ValueError("gather_points_cuda: src and idx must be CUDA tensors on one device")
+        raise ValueError(f"{name}: src and idx must be CUDA tensors on one device")
     if src.dtype != torch.float32 or idx.dtype not in (torch.int64, torch.int32):
-        raise TypeError(f"gather_points_cuda: src must be float32 and idx int64 or int32, got "
+        raise TypeError(f"{name}: src must be float32 and idx int64 or int32, got "
                         f"{src.dtype} and {idx.dtype}")
     if not (src.is_contiguous() and idx.is_contiguous()) or src.data_ptr() % 8:
-        raise ValueError("gather_points_cuda: inputs must be contiguous, src 8-byte aligned")
+        raise ValueError(f"{name}: inputs must be contiguous, src 8-byte aligned")
     if src.dim() != 3 or src.shape[2] != 2 or idx.dim() != 2 or idx.shape[0] != src.shape[0] \
             or src.numel() == 0 or idx.numel() == 0:
-        raise ValueError(f"gather_points_cuda: src {tuple(src.shape)} must be [G, NS, 2] and "
+        raise ValueError(f"{name}: src {tuple(src.shape)} must be [G, NS, 2] and "
                          f"idx {tuple(idx.shape)} [G, P], non-empty")
     G, NS, _ = src.shape
     P = idx.shape[1]
     if G > 65535 or max(NS, P) >= 2**30:
-        raise ValueError(f"gather_points_cuda: [{G}, {NS}] -> {P} is out of range (at most "
+        raise ValueError(f"{name}: [{G}, {NS}] -> {P} is out of range (at most "
                          "65535 rows and 2^30 - 1 points)")
+    return G, NS, P
+
+
+def _launch(src, idx, mode: str, plan: Optional[GatherPlan], name: str) -> torch.Tensor:
+    G, NS, P = _check(src, idx, name)
     out = torch.empty((G, P, 2), dtype=torch.float32, device=src.device)
+    if plan is None:
+        plan = launch_plan(idx.element_size(), idx.data_ptr(), out.data_ptr())
     err = _kernel()(src.data_ptr(), idx.data_ptr(), out.data_ptr(), G, NS, P,
-                    idx.element_size(), torch._C._cuda_getCurrentRawStream(src.get_device()))
+                    idx.element_size(), plan.vec, int(plan.hints), MODES.index(mode),
+                    torch._C._cuda_getCurrentRawStream(src.get_device()))
     if err != 0:
-        raise RuntimeError(f"gather_points launch failed: CUDA error {err}")
+        raise RuntimeError(f"{name} ({mode}, {plan}) launch failed: CUDA error {err}")
+    return out
+
+
+def gather_points_cuda(src: torch.Tensor, idx: torch.Tensor,
+                       plan: Optional[GatherPlan] = None) -> torch.Tensor:
+    """Launch the kernel on contiguous CUDA tensors: src [G, NS, 2] float32,
+    idx [G, P] int64 or int32 -> [G, P, 2] float32. `plan` is
+    `launch_plan`'s choice unless the caller names another (to check or
+    time it); a launch that fails raises, whatever the plan."""
+    global launches
+    out = _launch(src, idx, "gather", plan, "gather_points_cuda")
     launches += 1
     return out
+
+
+def gather_floor_cuda(src: torch.Tensor, idx: torch.Tensor, mode: str,
+                      plan: Optional[GatherPlan] = None) -> torch.Tensor:
+    """One of the gather's floors on its grid and plan, for measurement:
+    "empty" (the kernel returns at once; the output is left unwritten) or
+    "stream" (the index's bits copied into the output, no gather). Not
+    counted in `launches`."""
+    if mode not in ("empty", "stream"):
+        raise ValueError(f"gather_floor_cuda: mode {mode!r} is not 'empty' or 'stream'")
+    return _launch(src, idx, mode, plan, "gather_floor_cuda")
 
 
 def gather_points(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -113,6 +113,41 @@ def test_bf16_value_matches_jax():
     np.testing.assert_allclose(got.float().numpy(), want, atol=1e-2, rtol=2**-8)
 
 
+# TTA's 384^2 branch at a small size: the pixel decoder's levels (res5, res4,
+# res3) of a 96^2 frame, the layout whose res3 level, at 384^2, is too large
+# for one block's copy of the slice (the grouped plan)
+TTA_LEVELS = ((3, 3), (6, 6), (12, 12))
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("float64", 1e-10), ("bfloat16", 2**-8)])
+def test_plain_matches_jax_at_the_tta_levels(dtype, tol):
+    """At the TTA layout, 2 frames x 2 heads x 8 channels, every query of
+    the 189 tokens: fp32 the same products in another order (1e-5), fp64
+    rounding (1e-10), a bf16 value with fp32 sums rounded to bf16 once on
+    both sides (one bf16 ulp, 2^-8 relative, 1e-2 absolute)."""
+    s = sum(h * w for h, w in TTA_LEVELS)
+    value, loc, wts = _inputs(9, shapes=TTA_LEVELS, lq=s, p=4)
+    if dtype == "float64":
+        value, loc, wts = (a.astype(np.float64) for a in (value, loc, wts))
+        with jax.enable_x64(True):
+            want = np.asarray(jax_ms_deform_attn(jnp.asarray(value), TTA_LEVELS,
+                                                 jnp.asarray(loc), jnp.asarray(wts)))
+        got = _plain(value, loc, wts, TTA_LEVELS)
+        atol = tol
+    elif dtype == "bfloat16":
+        got = ms_deform_attn_plain(torch.from_numpy(value).to(torch.bfloat16), TTA_LEVELS,
+                                   torch.from_numpy(loc), torch.from_numpy(wts)).float().numpy()
+        want = np.asarray(jax_ms_deform_attn(jnp.asarray(value, jnp.bfloat16), TTA_LEVELS, loc,
+                                             wts).astype(jnp.float32))
+        atol = 1e-2
+    else:
+        want = np.asarray(jax_ms_deform_attn(value, TTA_LEVELS, loc, wts))
+        got = _plain(value, loc, wts, TTA_LEVELS)
+        atol = tol
+    assert got.shape == want.shape == (B, s, M * D)
+    np.testing.assert_allclose(got, want, atol=atol, rtol=tol)
+
+
 def test_cpu_dispatch_takes_plain_path():
     value, loc, wts = (torch.from_numpy(a) for a in _inputs(6))
     before = deform_attn_cuda.launches
@@ -221,55 +256,73 @@ def test_bwd_launch_plan(case):
 
 
 H100_SMS = 132  # an H100 SXM's streaming multiprocessors
+TTA384_LEVELS = ((12, 12), (24, 24), (48, 48))  # the pixel decoder's levels at 384^2
 # name: (levels, frames, Lq, M, D, P, element size, opt-in bytes) -> (kernel, threads, chunk,
-# blocks per frame, smem bytes), on 132 SMs. The staged kernel's shared memory is the (frame,
-# head) slice, S x D elements rounded up to 16 bytes, plus each of its 32 warps' corner table,
-# 32 B a point for each of 32 / lanes queries (lanes: D / 4 when D % 4 == 0, else D / 2 bf16
-# pairs or D, rounded up to a power of two). Its query chunks per (frame, head) are the fewest
-# whose frames x M x chunks blocks fill their waves of 132 to 90%, at most 8, else the best
-# filled: 3 at 20 frames x 8 heads (480 of 528), 2 at 40 (640 of 660)
+# blocks per frame, smem bytes, channel groups), on 132 SMs. The staged kernel's shared memory
+# is the (frame, head) slice, S x D elements rounded up to 16 bytes, plus each of its 32 warps'
+# corner table, 32 B a point for each of 32 / lanes queries (lanes: D / 4 when D % 4 == 0,
+# else D / 2 bf16 pairs or D, rounded up to a power of two). The grouped plan's block holds the
+# whole slice or a channel group's rows and the same tables at 24-32 warps. Query chunks per
+# (frame, head) are the fewest whose frames x M x groups x chunks blocks fill their waves of
+# 132 to 90% (grouped: 95%), at most 8, else the best filled: 3 at 20 frames x 8 heads (480 of
+# 528), 2 at 40 (640 of 660)
 FWD_PLANS = {
     "eval_fp32": ((MAIN_LEVELS, 20, 1029, 8, 32, 4, 4, H100_OPTIN),
-                  ("staged", 1024, 343, 24, 1029 * 32 * 4 + 32 * 4 * 12 * 32)),  # 180,864
+                  ("staged", 1024, 343, 24, 1029 * 32 * 4 + 32 * 4 * 12 * 32, 1)),  # 180,864
     "eval_bf16": ((MAIN_LEVELS, 20, 1029, 8, 32, 4, 2, H100_OPTIN),
-                  ("staged", 1024, 343, 24, 1029 * 32 * 2 + 32 * 4 * 12 * 32)),  # 115,008
+                  ("staged", 1024, 343, 24, 1029 * 32 * 2 + 32 * 4 * 12 * 32, 1)),  # 115,008
     "train_fp32": ((MAIN_LEVELS, 40, 1029, 8, 32, 4, 4, H100_OPTIN),
-                   ("staged", 1024, 515, 16, 180864)),
+                   ("staged", 1024, 515, 16, 180864, 1)),
     "train_bf16": ((MAIN_LEVELS, 40, 1029, 8, 32, 4, 2, H100_OPTIN),
-                   ("staged", 1024, 515, 16, 115008)),
+                   ("staged", 1024, 515, 16, 115008, 1)),
     # one frame: 8 chunks, 64 blocks, the best a single wave gets; 4 frames: 4 (128 of 132);
     # 80 frames: 1 (640 of 660)
     "one_frame": ((MAIN_LEVELS, 1, 1029, 8, 32, 4, 4, H100_OPTIN),
-                  ("staged", 1024, 129, 64, 180864)),
+                  ("staged", 1024, 129, 64, 180864, 1)),
     "four_frames": ((MAIN_LEVELS, 4, 1029, 8, 32, 4, 4, H100_OPTIN),
-                    ("staged", 1024, 258, 32, 180864)),
+                    ("staged", 1024, 258, 32, 180864, 1)),
     "eighty_frames": ((MAIN_LEVELS, 80, 1029, 8, 32, 4, 4, H100_OPTIN),
-                      ("staged", 1024, 1029, 8, 180864)),
+                      ("staged", 1024, 1029, 8, 180864, 1)),
     "main_fp32_at_limit": ((MAIN_LEVELS, 20, 1029, 8, 32, 4, 4, 180864),
-                           ("staged", 1024, 343, 24, 180864)),
+                           ("staged", 1024, 343, 24, 180864, 1)),
+    # one byte short of the 32-warp staged block: the grouped plan keeps the whole slice at 28
+    # warps (1,536 B of tables a warp), its chunks filling waves to 95%: 4 (640 of 660 blocks)
     "main_fp32_one_byte_short": ((MAIN_LEVELS, 20, 1029, 8, 32, 4, 4, 180863),
-                                 ("global", 256, 0, 1029, 0)),
-    "no_optin": ((MAIN_LEVELS, 20, 1029, 8, 32, 4, 4, 0), ("global", 256, 0, 1029, 0)),
-    "no_optin_bf16": ((MAIN_LEVELS, 20, 1029, 8, 32, 4, 2, 0), ("global", 256, 0, 1029, 0)),
+                                 ("grouped", 896, 258, 32, 1029 * 32 * 4 + 28 * 1536, 1)),
+    "no_optin": ((MAIN_LEVELS, 20, 1029, 8, 32, 4, 4, 0), ("global", 256, 0, 1029, 0, 1)),
+    "no_optin_bf16": ((MAIN_LEVELS, 20, 1029, 8, 32, 4, 2, 0), ("global", 256, 0, 1029, 0, 1)),
     # TTA at 384^2: a 48^2 res3 level, S = 3024: 387 KB of slice in fp32, 194 KB in bf16, which
-    # with the tables (49 KB) does not fit either
-    "res3_48_fp32": ((((12, 12), (24, 24), (48, 48)), 20, 3024, 8, 32, 4, 4, H100_OPTIN),
-                     ("global", 256, 0, 3024, 0)),
-    "res3_48_bf16": ((((12, 12), (24, 24), (48, 48)), 20, 3024, 8, 32, 4, 2, H100_OPTIN),
-                     ("global", 256, 0, 3024, 0)),
+    # with 32 warps' tables (49 KB) does not fit either. The grouped plan: in bf16 the whole
+    # slice at 24 warps (1,536 B of tables a warp), 4 chunks; in fp32 2 channel groups of 16
+    # (193,536 B of rows), the same 8 lanes a query (2 channels a lane) at 24 warps, 2 chunks:
+    # 640 blocks each (of 660)
+    "res3_48_fp32": ((TTA384_LEVELS, 20, 3024, 8, 32, 4, 4, H100_OPTIN),
+                     ("grouped", 768, 1512, 32, 3024 * 16 * 4 + 24 * 1536, 2)),  # 230,400
+    "res3_48_bf16": ((TTA384_LEVELS, 20, 3024, 8, 32, 4, 2, H100_OPTIN),
+                     ("grouped", 768, 756, 32, 3024 * 32 * 2 + 24 * 1536, 1)),  # 230,400
+    # below 24 warps of 2 groups in fp32 (230,400 B), the next count: 4 groups at 32 warps
+    "res3_48_fp32_4_groups": ((TTA384_LEVELS, 20, 3024, 8, 32, 4, 4, 230399),
+                              ("grouped", 1024, 3024, 32, 3024 * 8 * 4 + 32 * 1536, 4)),
+    # global where no grouped block fits either (a 300^2 level: 4 groups are 1.4 MB in fp32)
+    "no_group_fits": ((((300, 300),), 2, 100, 8, 32, 4, 4, H100_OPTIN),
+                      ("global", 256, 0, 100, 0, 1)),
+    "tta384_no_optin": ((TTA384_LEVELS, 20, 3024, 8, 32, 4, 2, 0), ("global", 256, 0, 3024, 0, 1)),
+    # TTA at 128^2: the whole slice fits, staged as before
+    "tta128_bf16": ((((4, 4), (8, 8), (16, 16)), 20, 336, 8, 32, 4, 2, H100_OPTIN),
+                    ("staged", 1024, 112, 24, 336 * 32 * 2 + 32 * 4 * 12 * 32, 1)),  # 70,656
     # D = 16 with 2 levels: 4 lanes a query (8 queries a warp), fp32 and bf16; 3 frames x 3
     # heads fill a wave best at 8 chunks of 5 queries, 8 blocks a head
     "d16_l2_fp32": ((((3, 5), (6, 10)), 3, 37, 3, 16, 4, 4, H100_OPTIN),
-                    ("staged", 1024, 5, 24, 75 * 16 * 4 + 32 * 8 * 8 * 32)),  # 70,336
+                    ("staged", 1024, 5, 24, 75 * 16 * 4 + 32 * 8 * 8 * 32, 1)),  # 70,336
     "d16_l2_bf16": ((((3, 5), (6, 10)), 3, 37, 3, 16, 4, 2, H100_OPTIN),
-                    ("staged", 1024, 5, 24, 75 * 16 * 2 + 32 * 8 * 8 * 32)),  # 67,936
+                    ("staged", 1024, 5, 24, 75 * 16 * 2 + 32 * 8 * 8 * 32, 1)),  # 67,936
     # 4 levels, 16 points a query
     "l4_fp32": ((((2, 2), (4, 4), (8, 8), (16, 16)), 20, 340, 8, 32, 4, 4, H100_OPTIN),
-                ("staged", 1024, 114, 24, 340 * 32 * 4 + 32 * 4 * 16 * 32)),  # 109,056
+                ("staged", 1024, 114, 24, 340 * 32 * 4 + 32 * 4 * 16 * 32, 1)),  # 109,056
     # odd D in bf16: one element a lane (16 lanes, 2 queries a warp), rows of 26 bytes, the
     # slice rounded up to 16 bytes
     "d13_bf16": ((((3, 5), (6, 10)), 3, 37, 3, 13, 4, 2, H100_OPTIN),
-                 ("staged", 1024, 5, 24, 1952 + 32 * 2 * 8 * 32)),  # 75 * 26 = 1950 -> 1952
+                 ("staged", 1024, 5, 24, 1952 + 32 * 2 * 8 * 32, 1)),  # 75 * 26 = 1950 -> 1952
 }
 
 
@@ -277,10 +330,12 @@ FWD_PLANS = {
 def test_fwd_launch_plan(case):
     """K1's launch plan is a pure function of the shapes, value's element
     size and the card's opt-in limit and SM count: the staged kernel exactly
-    when its shared memory (the whole (frame, head) value slice and the
-    warps' corner tables) fits it, its query chunk set by how its blocks
-    fill the SMs' waves, else the global one; and the C function's int
-    array carries the plan, the dtype and the level shapes."""
+    when its shared memory (the whole (frame, head) value slice and 32
+    warps' corner tables) fits it, else the grouped plan where a block of
+    24-32 warps of the whole slice or of a channel group fits, the query
+    chunk set by how the blocks fill the SMs' waves, else the global one;
+    and the C function's int array carries the plan, its channel groups,
+    the dtype and the level shapes."""
     (levels, b, lq, m, d, p, esize, optin), want = FWD_PLANS[case]
     plan = deform_attn_cuda.fwd_launch_plan(levels, b, lq, m, d, p, esize, optin, H100_SMS)
     assert tuple(plan) == want
@@ -289,8 +344,51 @@ def test_fwd_launch_plan(case):
     s = sum(h * w for h, w in levels)
     args = deform_attn_cuda.fwd_plan_args(b, s, lq, m, d, p, esize, levels, plan)
     assert list(args) == [b, s, lq, m, d, len(levels), p, int(esize == 2),
-                          ("global", "staged").index(want[0]), *want[1:],
+                          ("global", "staged", "grouped").index(want[0]), *want[1:],
                           *[n for hw in levels for n in hw]]
+
+
+# the eval and training shapes at 224^2 (20 and 40 frames, fp32 and bf16): the staged plans,
+# which every path but TTA's 384^2 branch launches, keep their block, chunks and memory
+STAGED_224 = {(20, 4): (343, 24, 180864), (20, 2): (343, 24, 115008),
+              (40, 4): (515, 16, 180864), (40, 2): (515, 16, 115008)}
+
+
+@pytest.mark.parametrize("frames,esize", sorted(STAGED_224))
+def test_fwd_launch_plan_keeps_the_224_plans(frames, esize):
+    chunk, blocks, smem = STAGED_224[frames, esize]
+    plan = deform_attn_cuda.fwd_launch_plan(MAIN_LEVELS, frames, 1029, 8, 32, 4, esize,
+                                            H100_OPTIN, H100_SMS)
+    assert plan == ("staged", 1024, chunk, blocks, smem, 1)
+
+
+@pytest.mark.parametrize("D,esize,groups", [(32, 4, (1, 2, 4)), (32, 2, (1, 2, 4)),
+                                            (16, 4, (1, 2, 4)), (16, 2, (1, 2)), (13, 2, (1,)),
+                                            (24, 2, (1, 3))])
+def test_grouped_fits(D, esize, groups):
+    """A grouped block holds the whole slice (1 group) or a channel group
+    with the staged plan's lanes a query (8 at D = 32, 4 at D = 16, 8 at D
+    = 24 in bf16: 6 rounded up), each lane taking 1, 2 or 4 of the group's
+    channels, and rows of a multiple of 16 bytes: D = 16 bf16 in 4 groups
+    would be 8-byte rows; D = 13 has no even split."""
+    assert tuple(g for g in range(1, D + 1)
+                 if deform_attn_cuda.grouped_fits(D, esize, g)) == groups
+
+
+def test_grouped_bytes():
+    """The grouped block's shared memory: its group's rows, and the corner
+    tables of the staged plan at the same warps (the lanes a query do not
+    change with the groups)."""
+    sb = deform_attn_cuda.staged_bytes
+    assert sb(TTA384_LEVELS, 32, 4, 2, 1024, 2) == 3024 * 16 * 2 + 32 * 4 * 12 * 32
+    assert sb(TTA384_LEVELS, 32, 4, 4, 800, 2) == 3024 * 16 * 4 + 25 * 4 * 12 * 32
+    assert sb(TTA384_LEVELS, 32, 4, 4, 1024, 4) == 3024 * 8 * 4 + 32 * 4 * 12 * 32
+    tables = sb(MAIN_LEVELS, 32, 4, 4, 1024) - 1029 * 32 * 4
+    assert sb(MAIN_LEVELS, 32, 4, 4, 1024, 2) == 1029 * 16 * 4 + tables
+    # warps a multiple of 4: the whole bf16 slice fits 25 warps' tables, the plan takes 24
+    assert deform_attn_cuda.grouped_layout(TTA384_LEVELS, 32, 4, 4, H100_OPTIN) == (2, 768)
+    assert deform_attn_cuda.grouped_layout(TTA384_LEVELS, 32, 4, 2, H100_OPTIN) == (1, 768)
+    assert deform_attn_cuda.grouped_layout(((300, 300),), 32, 4, 4, H100_OPTIN) is None
 
 
 def test_fwd_launch_plan_forced():
@@ -301,9 +399,12 @@ def test_fwd_launch_plan_forced():
     builds them."""
     assert deform_attn_cuda.fwd_launch_plan(MAIN_LEVELS, 20, 1029, 8, 32, 4, 4, 0,
                                             H100_SMS).kernel == "global"
-    tta = ((12, 12), (24, 24), (48, 48))
-    plan = deform_attn_cuda.fwd_launch_plan(tta, 20, 3024, 8, 32, 4, 4, 2**31, H100_SMS)
+    plan = deform_attn_cuda.fwd_launch_plan(TTA384_LEVELS, 20, 3024, 8, 32, 4, 4, 2**31, H100_SMS)
     assert plan.kernel == "staged" and plan.smem_bytes == 3024 * 32 * 4 + 32 * 4 * 12 * 32
+    assert plan.smem_bytes > H100_OPTIN
+    # the grouped block at 32 warps, over the limit in fp32 (242,688 B), as the sweep builds it
+    plan = deform_attn_cuda.staged_plan(TTA384_LEVELS, 3024, 8, 32, 4, 4, 1024, 2, 2, "grouped")
+    assert plan == ("grouped", 1024, 1512, 32, 3024 * 16 * 4 + 32 * 1536, 2)
     assert plan.smem_bytes > H100_OPTIN
     # 8 warps: the slice and 8 warps' tables of 4 queries x 12 points
     assert deform_attn_cuda.staged_bytes(MAIN_LEVELS, 32, 4, 4, 256) == 131712 + 8 * 4 * 12 * 32

@@ -80,6 +80,25 @@ def test_fallback_on_cpu_is_exact_top_k():
         assert a == {tuple(p) for p in want[m].tolist()}
 
 
+# (index bytes, index address, output address) -> (points a thread, hints): 4 points a thread
+# where the index is aligned to min(16, 4 x its bytes) and the output to 16, else 1
+GATHER_PLANS = {
+    "aligned_int64": ((8, 0x7f0000000000, 0x7f0000100000), (4, True)),
+    "aligned_int32": ((4, 0x7f0000000000, 0x7f0000100000), (4, True)),
+    "index_8_bytes_off": ((8, 0x7f0000000008, 0x7f0000100000), (1, True)),
+    "int32_index_8_bytes_off": ((4, 0x7f0000000008, 0x7f0000100000), (1, True)),
+    "output_8_bytes_off": ((8, 0x7f0000000000, 0x7f0000100008), (1, True)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GATHER_PLANS))
+def test_gather_launch_plan(case):
+    """K6's launch plan is a pure function of the index's element size and
+    the two addresses' alignment (the kernel cannot run here)."""
+    args, want = GATHER_PLANS[case]
+    assert tuple(gather_cuda.launch_plan(*args)) == want
+
+
 def test_argtypes_match_the_c_signature():
     from tests.test_torch_point_sample import c_signature
 

@@ -1,6 +1,6 @@
 """The hand-written CUDA kernel K1 (multi-scale deformable attention forward)
-against its plain PyTorch version, on a CUDA card, under both of
-`fwd_launch_plan`'s plans. K1 has no CPU mode, so without a card every test
+against its plain PyTorch version, on a CUDA card, under each of
+`fwd_launch_plan`'s plans (staged, grouped, global). K1 has no CPU mode, so without a card every test
 here skips.
 
 This file imports neither jax nor the JAX package, so it runs on a machine
@@ -18,6 +18,11 @@ from combo_avs_torch.ops.deform_attn import ms_deform_attn_plain
 
 MAIN = dict(levels=((7, 7), (14, 14), (28, 28)), lq=1029, m=8, d=32)  # the main path's shape
 RAGGED = dict(levels=((3, 5), (6, 10)), lq=37, m=3, d=16)  # D=16, Lq*M not a multiple of 8
+# TTA's 384^2 branch: 4 videos x 5 frames, the pixel decoder's levels at 384^2
+TTA384 = dict(levels=((12, 12), (24, 24), (48, 48)), lq=3024, m=8, d=32, b=20)
+# a slice of 5632 x 16 channels (352 KB in fp32, 176 KB in bf16, over the
+# limit beside the tables), 3 heads, 1001 queries, 5 frames
+TTA384_RAGGED = dict(levels=((16, 16), (64, 84)), lq=1001, m=3, d=16, b=5)
 
 
 @pytest.fixture
@@ -73,18 +78,75 @@ def test_k1_dispatch_takes_the_plan(cuda_device):
 
 
 @pytest.mark.gpu
-def test_k1_forced_plan_over_the_limit_raises(cuda_device):
-    """A staged plan whose shared memory exceeds the card's opt-in limit (a
-    48^2 level's slice in fp32, 387 KB) is refused by the launch, which
-    raises; nothing falls back to another kernel."""
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, K1_TOL_FP32), (torch.bfloat16, K1_TOL_BF16)])
+@pytest.mark.parametrize("shape", [TTA384, TTA384_RAGGED], ids=["tta384", "ragged"])
+def test_k1_grouped_plan_matches_plain(cuda_device, dtype, tol, shape):
+    """Where the whole (frame, head) slice and 32 warps' corner tables do
+    not fit the card's opt-in shared memory (TTA's 384^2 branch, 20 frames:
+    387 KB of slice in fp32, 194 KB in bf16), the plan is grouped (the
+    whole slice at fewer warps in bf16, 2 channel groups in fp32), and the
+    result matches the plain version; so does a ragged shape that takes the
+    grouped plan (D = 16, a query count that no chunk divides)."""
+    levels, b = shape["levels"], shape["b"]
+    value, loc, w = k1_inputs(b, shape["m"], shape["d"], 4, levels, shape["lq"], dtype,
+                              cuda_device, seed=8)
+    optin = deform_attn_cuda.smem_optin(cuda_device.index)
+    sms = deform_attn_cuda.sm_count(cuda_device.index)
+    esize = value.element_size()
+    assert deform_attn_cuda.staged_bytes(levels, shape["d"], 4, esize) > optin
+    plan = deform_attn_cuda.fwd_launch_plan(levels, b, shape["lq"], shape["m"], shape["d"], 4,
+                                            esize, optin, sms)
+    assert plan.kernel == "grouped" and plan.smem_bytes <= optin
+    assert plan.groups == (2 if dtype == torch.float32 else 1)
+    assert shape["lq"] % plan.chunk or shape is TTA384
+    before = dict(deform_attn_cuda.fwd_plan_launches)
+    with torch.inference_mode():
+        got = deform_attn_cuda.ms_deform_attn(value, levels, loc, w)
+        want = ms_deform_attn_plain(value, levels, loc, w)
+    torch.cuda.synchronize()
+    assert deform_attn_cuda.fwd_plan_launches["grouped"] == before["grouped"] + 1
+    assert got.dtype == dtype and got.shape == want.shape
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol * want.float().abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("groups", [2, 4])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, K1_TOL_FP32), (torch.bfloat16, K1_TOL_BF16)])
+def test_k1_channel_groups_match_plain(cuda_device, dtype, tol, groups):
+    """The grouped kernel on 2 and 4 channel groups at TTA's 384^2 shape
+    (2 or 1 channels a lane), forced at 24 warps and 2 chunks, matches the
+    plain version in both dtypes, whichever the plan picks."""
+    s = TTA384
+    value, loc, w = k1_inputs(s["b"], s["m"], s["d"], 4, s["levels"], s["lq"], dtype,
+                              cuda_device, seed=9)
+    plan = deform_attn_cuda.staged_plan(s["levels"], s["lq"], s["m"], s["d"], 4,
+                                        value.element_size(), 768, 2, groups, "grouped")
+    assert plan.smem_bytes <= deform_attn_cuda.smem_optin(cuda_device.index)
+    with torch.inference_mode():
+        got = deform_attn_cuda.ms_deform_attn_cuda(value, s["levels"], loc, w, plan=plan)
+        want = ms_deform_attn_plain(value, s["levels"], loc, w)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol * want.float().abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("groups", [1, 2])
+def test_k1_forced_plan_over_the_limit_raises(cuda_device, groups):
+    """A staged or grouped plan whose shared memory exceeds the card's
+    opt-in limit (a 48^2 level's whole slice in fp32, 387 KB; half of it,
+    194 KB, beside 32 warps' corner tables, 49 KB) is refused by the launch,
+    which raises; nothing falls back to another kernel."""
     levels = ((48, 48), (24, 24), (12, 12))
     value, loc, w = k1_inputs(1, 2, 32, 4, levels, 5, torch.float32, cuda_device, seed=7)
     optin = deform_attn_cuda.smem_optin(cuda_device.index)
-    sms = deform_attn_cuda.sm_count(cuda_device.index)
     assert deform_attn_cuda.fwd_launch_plan(levels, 1, 5, 2, 32, 4, 4, optin,
-                                            sms).kernel == "global"
-    plan = deform_attn_cuda.fwd_launch_plan(levels, 1, 5, 2, 32, 4, 4, 10**7, sms)
-    assert plan.kernel == "staged"
+                                            deform_attn_cuda.sm_count(cuda_device.index)
+                                            ).kernel == "grouped"
+    plan = deform_attn_cuda.staged_plan(levels, 5, 2, 32, 4, 4, 1024, 1, groups,
+                                        "staged" if groups == 1 else "grouped")
+    assert plan.kernel == ("staged" if groups == 1 else "grouped")
     assert plan.smem_bytes > optin
     before = deform_attn_cuda.launches
     with pytest.raises(RuntimeError, match="launch failed"):

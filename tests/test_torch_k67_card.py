@@ -99,7 +99,8 @@ def test_k7_refuses_what_it_does_not_take(cuda_device):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("index_dtype", [torch.int64, torch.int32])
-@pytest.mark.parametrize("shape", [(240, 37632, 9408), (3, 17, 1000), (5, 1, 3)])
+@pytest.mark.parametrize("shape", [(120, 37632, 9408), (240, 37632, 9408), (3, 1500, 1001),
+                                   (3, 17, 1000), (5, 1, 3)])
 def test_k6_matches_gather(cuda_device, shape, index_dtype):
     """Exact equality with torch.gather, the edge indices 0 and NS - 1
     included, at the criterion's shape and at a P that is not a multiple of
@@ -115,6 +116,46 @@ def test_k6_matches_gather(cuda_device, shape, index_dtype):
     assert gather_cuda.launches == before + 1
     torch.cuda.synchronize()
     assert torch.equal(got, torch.gather(src, 1, idx.long()[..., None].expand(-1, -1, 2)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("index_dtype", [torch.int64, torch.int32])
+def test_k6_every_plan_matches_gather(cuda_device, index_dtype):
+    """Each launch plan (1, 2, 4 or 8 points a thread, with and without the
+    streaming hints) equals torch.gather at a ragged shape (3 x 1001
+    points, no multiple of 8), and a plan's floors launch on its grid."""
+    G, NS, P = 3, 1500, 1001
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    src = torch.randn((G, NS, 2), generator=g, device=cuda_device)
+    idx = torch.randint(0, NS, (G, P), generator=g, device=cuda_device).to(index_dtype)
+    want = gather_cuda.gather_points_plain(src, idx)
+    for vec in (1, 2, 4, 8):
+        for hints in (False, True):
+            plan = gather_cuda.GatherPlan(vec, hints)
+            assert torch.equal(gather_cuda.gather_points_cuda(src, idx, plan), want), plan
+    before = gather_cuda.launches
+    copied = gather_cuda.gather_floor_cuda(src, idx, "stream")
+    gather_cuda.gather_floor_cuda(src, idx, "empty")
+    torch.cuda.synchronize()
+    assert gather_cuda.launches == before  # the floors are not the gather
+    bits = copied.view(torch.int64 if index_dtype == torch.int64 else torch.int32)
+    assert torch.equal(bits.reshape(G, P, -1)[..., 0], idx)
+
+
+@pytest.mark.gpu
+def test_k6_misaligned_index_takes_one_point_a_thread(cuda_device):
+    """An index view 8 bytes past an aligned address cannot take 16-byte
+    loads: the plan takes one point a thread, and the gather is still
+    exact."""
+    G, NS, P = 4, 300, 257
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    src = torch.randn((G, NS, 2), generator=g, device=cuda_device)
+    idx = torch.randint(0, NS, (G * P + 1,), generator=g, device=cuda_device)[1:].view(G, P)
+    assert idx.data_ptr() % 16 == 8
+    out = torch.empty((G, P, 2), device=cuda_device)
+    assert gather_cuda.launch_plan(8, idx.data_ptr(), out.data_ptr()).vec == 1
+    assert torch.equal(gather_cuda.gather_points(src, idx),
+                       gather_cuda.gather_points_plain(src, idx))
 
 
 @pytest.mark.gpu
