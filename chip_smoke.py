@@ -631,8 +631,8 @@ def phase_k1(dev: torch.device) -> dict:
     """K1 against the plain version under both launch plans: the plan's own
     choice (staged where the (frame, head) value slice fits the card's
     opt-in shared memory, its query chunk made for the frame count and the
-    card's SMs; grouped, a smaller block on the whole slice or on a channel
-    group of it, where the 32-warp staged block does not fit) through the
+    card's SMs; grouped, a smaller block on the whole slice or on an fp32
+    channel group of it, where the 32-warp staged block does not fit) through the
     wrapper, and global forced (the plan at an
     opt-in limit of 0), at the eval shape (20 frames), the training shape
     (40), a ragged shape and the TTA branches' shapes, fp32 and bf16. Both
@@ -1060,9 +1060,9 @@ def k6_inputs(G: int, NS: int, P: int, dev: torch.device):
     return src, idx
 
 
-def k6_floors(src: torch.Tensor, idx: torch.Tensor, plan=None) -> dict:
+def k6_floors(src: torch.Tensor, idx: torch.Tensor) -> dict:
     """The gather's device ms beside its floors, each in the CUDA-graph
-    replay of `device_time_ms`, on the plan's grid: an empty kernel
+    replay of `device_time_ms`, on its grid: an empty kernel
     (launch and tail), a streaming copy of the index into the output (the
     index and output bytes alone), the gather as replayed back to back
     (warm: what the replays leave of the source in L2) and the gather after
@@ -1071,12 +1071,12 @@ def k6_floors(src: torch.Tensor, idx: torch.Tensor, plan=None) -> dict:
     from combo_avs_torch.ops import gather_cuda as k
 
     flush = torch.ones(K6_FLUSH_BYTES // 4, device=src.device)
-    out = {f"{mode}_ms": device_time_ms(lambda m=mode: k.gather_floor_cuda(src, idx, m, plan))[0]
+    out = {f"{mode}_ms": device_time_ms(lambda m=mode: k.gather_floor_cuda(src, idx, m))[0]
            for mode in ("empty", "stream")}
-    out["warm_ms"] = device_time_ms(lambda: k.gather_points_cuda(src, idx, plan))[0]
+    out["warm_ms"] = device_time_ms(lambda: k.gather_points_cuda(src, idx))[0]
     out["flush_ms"] = device_time_ms(lambda: flush.sum())[0]
     out["cold_ms"] = device_time_ms(
-        lambda: (flush.sum(), k.gather_points_cuda(src, idx, plan)))[0] - out["flush_ms"]
+        lambda: (flush.sum(), k.gather_points_cuda(src, idx)))[0] - out["flush_ms"]
     return out
 
 
@@ -1100,7 +1100,7 @@ def phase_k6(dev: torch.device) -> dict:
                 "torch.gather")
         if name != "train":
             continue
-        plan = k.launch_plan(idx.element_size(), idx.data_ptr(), got.data_ptr())
+        vec = k.points_per_thread(idx.element_size(), idx.data_ptr(), got.data_ptr())
         idx2 = idx[..., None].expand(-1, -1, 2)
         t = timings(lambda: k.gather_points_cuda(src, idx),
                     plain=lambda: k.gather_points_plain(src, idx),
@@ -1110,14 +1110,14 @@ def phase_k6(dev: torch.device) -> dict:
         touched = int(torch.unique(idx + torch.arange(G, device=dev)[:, None] * NS).numel())
         bd = bound(nbytes(idx, got) + 8 * touched, 0)
         floors = k6_floors(src, idx)
-        log(f"[k6] {name}: plan {plan}: {describe(t, 'torch.gather')}; bound "
+        log(f"[k6] {name}: {vec} points a thread: {describe(t, 'torch.gather')}; bound "
             f"{bd['bound_ms']:.4f} ms by {bd['bound_by']} ({bd['bound_ms'] / t['ms']:.0%} of it)")
-        log(f"[k6] {name}: floors, device ms on the plan's grid: empty kernel "
+        log(f"[k6] {name}: floors, device ms on its grid: empty kernel "
             f"{floors['empty_ms']:.4f}, streaming copy of the index into the output "
             f"{floors['stream_ms']:.4f}, gather warm {floors['warm_ms']:.4f}, gather with the "
             f"source flushed from L2 {floors['cold_ms']:.4f} (the flush's read of "
             f"{K6_FLUSH_BYTES >> 20} MiB {floors['flush_ms']:.4f} taken off)")
-        result = dict(max_abs_err=0.0, plan=plan._asdict(), floors=floors, **t, **bd)
+        result = dict(max_abs_err=0.0, points_per_thread=vec, floors=floors, **t, **bd)
     return result
 
 
@@ -3375,7 +3375,7 @@ def main(argv=None) -> int:
         kernel_entry("gather_points", "combo_avs_torch/csrc/gather.cu", REPLACES["k6"],
                      by_path("k6"), k6,
                      shape="src [120,37632,2] fp32, idx [120,9408] int64",
-                     plan=k6["plan"], floors_ms=k6["floors"]),
+                     points_per_thread=k6["points_per_thread"], floors_ms=k6["floors"]),
     ]
     log(json.dumps({"train": {"s_per_step": tr["s_per_step"], "step_times_s": tr["times"],
                               "max_memory_allocated": tr["peak_bytes"],

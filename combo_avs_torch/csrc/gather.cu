@@ -26,21 +26,21 @@
 //  * the index and the output, read and written once, stream past L2
 //    (ld.global.cs / st.global.cs, evict first) so that the source keeps L2
 //    for the random reads, which go through the read-only path.
-// V and the hints come from ops/gather_cuda.py::launch_plan (4 points a
-// thread with the hints; 1, 2 or 8 points, or no hints, are slower), which
-// takes V = 1 where a pointer is not aligned for the vectors. What holds it
-// at that time, from its floors on the card (scripts/bench_gather_plans.py):
-// an empty kernel on its grid takes 0.0012-0.0014 ms and a streaming copy
-// of the index into the output 0.0074-0.0076, so about 0.012 ms of the
-// 0.019-0.020 go to the 1.1 M dependent random 8-byte reads of the source,
-// a 32-byte sector each, even with the source in L2 (0.0230-0.0234 with it
-// flushed). Tried and dropped:
+// V comes from ops/gather_cuda.py::points_per_thread: 4 points a thread,
+// or 1 where a pointer is not aligned for the vectors (1, 2 or 8 points a
+// thread, or no streaming hints, timed slower at the criterion's shape;
+// PERF.md, K6 findings). What holds it at that time, from its floors on the card
+// (scripts/bench_gather_plans.py): an empty kernel on its grid takes
+// 0.0012-0.0014 ms and a streaming copy of the index into the output
+// 0.0074-0.0076, so about 0.012 ms of the 0.019-0.020 go to the 1.1 M
+// dependent random 8-byte reads of the source, a 32-byte sector each, even
+// with the source in L2 (0.0230-0.0234 with it flushed). Tried and dropped:
 // a block per part of a source row, the part copied to shared memory and
 // every index of the row read against it (the source read once, streamed),
-// slower at every part count, warm and cold. The kernel's other
-// modes (an empty kernel on the same grid; a streaming copy of the index
-// into the output) are the floors the design is measured against; no caller
-// of the gather runs them. The TPU kernel gathered flattened [2M, NS] x and
+// slower at every part count, warm and cold. `gather_floor` runs the two
+// floors the design is measured against (an empty kernel on the same grid;
+// a streaming copy of the index into the output); no caller of the gather
+// runs them. The TPU kernel gathered flattened [2M, NS] x and
 // y rows, its one-hot row selection on the MXU and lane-select reduction
 // existing because TPU gathers were serial dynamic slices; the card loads
 // directly. The indices are taken as given, 0 <= idx < NS, as gather_lanes
@@ -53,184 +53,173 @@
 namespace {
 
 constexpr int kThreads = 256;
-enum Mode { kGather = 0, kStream = 1, kEmpty = 2 };
+constexpr int kVec = 4;  // points a thread where the pointers allow vectors
 
-template <bool kHints>
-__device__ __forceinline__ long long load_index(const long long* p) {
-  return kHints ? __ldcs(p) : *p;
-}
-template <bool kHints>
-__device__ __forceinline__ long long load_index(const int* p) {
-  return kHints ? __ldcs(p) : *p;
-}
-template <bool kHints>
-__device__ __forceinline__ void store_point(float2* p, float2 v) {
-  if (kHints) __stcs(p, v);
-  else *p = v;
-}
-
-// V indices from p, 16 bytes at a time where V * sizeof(I) >= 16 (p then
-// aligned to 16 bytes), else in one load of V * sizeof(I) bytes.
-template <bool kHints, int V>
-__device__ __forceinline__ void load_indices(const long long* p, long long (&id)[V]) {
-  if constexpr (V == 1) {
-    id[0] = load_index<kHints>(p);
-  } else {
-#pragma unroll
-    for (int j = 0; j < V; j += 2) {
-      const longlong2 v = kHints ? __ldcs(reinterpret_cast<const longlong2*>(p + j))
-                                 : *reinterpret_cast<const longlong2*>(p + j);
-      id[j] = v.x;
-      id[j + 1] = v.y;
+// V indices from p, streamed: 16 bytes at a time for V = 4 (p then aligned
+// to min(16, 4 * sizeof(I)) bytes); only the first n - f0 where the thread's
+// points run past the end (their indices read as 0).
+template <int V>
+__device__ __forceinline__ void load_indices(const long long* p, long long (&id)[V], int64_t left) {
+  if constexpr (V == 4) {
+    if (left >= V) {
+      const longlong2 a = __ldcs(reinterpret_cast<const longlong2*>(p));
+      const longlong2 b = __ldcs(reinterpret_cast<const longlong2*>(p + 2));
+      id[0] = a.x;
+      id[1] = a.y;
+      id[2] = b.x;
+      id[3] = b.y;
+      return;
     }
   }
-}
-template <bool kHints, int V>
-__device__ __forceinline__ void load_indices(const int* p, long long (&id)[V]) {
-  if constexpr (V == 1) {
-    id[0] = load_index<kHints>(p);
-  } else if constexpr (V == 2) {
-    const int2 v = kHints ? __ldcs(reinterpret_cast<const int2*>(p))
-                          : *reinterpret_cast<const int2*>(p);
-    id[0] = v.x;
-    id[1] = v.y;
-  } else {
 #pragma unroll
-    for (int j = 0; j < V; j += 4) {
-      const int4 v = kHints ? __ldcs(reinterpret_cast<const int4*>(p + j))
-                            : *reinterpret_cast<const int4*>(p + j);
-      id[j] = v.x;
-      id[j + 1] = v.y;
-      id[j + 2] = v.z;
-      id[j + 3] = v.w;
+  for (int j = 0; j < V; ++j) id[j] = j < left ? __ldcs(p + j) : 0;
+}
+template <int V>
+__device__ __forceinline__ void load_indices(const int* p, long long (&id)[V], int64_t left) {
+  if constexpr (V == 4) {
+    if (left >= V) {
+      const int4 v = __ldcs(reinterpret_cast<const int4*>(p));
+      id[0] = v.x;
+      id[1] = v.y;
+      id[2] = v.z;
+      id[3] = v.w;
+      return;
     }
   }
+#pragma unroll
+  for (int j = 0; j < V; ++j) id[j] = j < left ? __ldcs(p + j) : 0;
 }
 
-// V points to p: two a 16-byte store (p aligned to 16 bytes for V >= 2).
-template <bool kHints, int V>
-__device__ __forceinline__ void store_points(float2* p, const float2 (&v)[V]) {
-  if constexpr (V == 1) {
-    store_point<kHints>(p, v[0]);
-  } else {
-#pragma unroll
-    for (int j = 0; j < V; j += 2) {
-      const float4 w = make_float4(v[j].x, v[j].y, v[j + 1].x, v[j + 1].y);
-      if (kHints) __stcs(reinterpret_cast<float4*>(p + j), w);
-      else *reinterpret_cast<float4*>(p + j) = w;
+// V points to p, streamed: two a 16-byte store for V = 4 (p aligned to 16
+// bytes); only the first `left` at the end.
+template <int V>
+__device__ __forceinline__ void store_points(float2* p, const float2 (&v)[V], int64_t left) {
+  if constexpr (V == 4) {
+    if (left >= V) {
+      __stcs(reinterpret_cast<float4*>(p), make_float4(v[0].x, v[0].y, v[1].x, v[1].y));
+      __stcs(reinterpret_cast<float4*>(p + 2), make_float4(v[2].x, v[2].y, v[3].x, v[3].y));
+      return;
     }
   }
-}
-
-// The index as the output's bits (the streaming-copy floor): an int64
-// index fills a float2, an int32 one its x.
-__device__ __forceinline__ float2 as_point(long long i, bool wide) {
-  return wide ? make_float2(__int_as_float((int)i), __int_as_float((int)(i >> 32)))
-              : make_float2(__int_as_float((int)i), 0.f);
+#pragma unroll
+  for (int j = 0; j < V; ++j)
+    if (j < left) __stcs(p + j, v[j]);
 }
 
 // Thread t takes the flat points [V t, V t + V) of the n = G x P; point f
 // is (g, r) = (f / P, f % P). I is the index type, long long or int.
-template <typename I, int V, bool kHints, int kMode>
+template <typename I, int V>
 __global__ void __launch_bounds__(kThreads)
 gather_kernel(const float2* __restrict__ src,  // [G, NS] points
               const I* __restrict__ idx,       // [G, P]
               float2* __restrict__ out,        // [G, P] points
               int NS, int P, int64_t n) {
   const int64_t f0 = ((int64_t)blockIdx.x * kThreads + threadIdx.x) * V;
-  if (kMode == kEmpty || f0 >= n) return;
-  const I* ip = idx + f0;
+  if (f0 >= n) return;
+  const int64_t left = n - f0;
   long long id[V];
   float2 v[V];
-  const bool whole = f0 + V <= n;
-  if (whole) {
-    load_indices<kHints, V>(ip, id);
-  } else {
+  load_indices<V>(idx + f0, id, left);
+  int64_t g = f0 / P;
+  int r = (int)(f0 - g * P);
 #pragma unroll
-    for (int j = 0; j < V; ++j) id[j] = f0 + j < n ? load_index<kHints>(ip + j) : 0;
-  }
-  if (kMode == kStream) {
-#pragma unroll
-    for (int j = 0; j < V; ++j) v[j] = as_point(id[j], sizeof(I) == 8);
-  } else {
-    int64_t g = f0 / P;
-    int r = (int)(f0 - g * P);
-#pragma unroll
-    for (int j = 0; j < V; ++j) {  // every gather issued before the first store
-      if (whole || f0 + j < n) v[j] = __ldg(src + g * NS + id[j]);
-      if (++r == P) {
-        r = 0;
-        ++g;
-      }
+  for (int j = 0; j < V; ++j) {  // every gather issued before the first store
+    if (j < left) v[j] = __ldg(src + g * NS + id[j]);
+    if (++r == P) {
+      r = 0;
+      ++g;
     }
   }
-  if (whole) {
-    store_points<kHints, V>(out + f0, v);
-  } else {
+  store_points<V>(out + f0, v, left);
+}
+
+// The floors, on the gather's grid at kVec points a thread: with kCopy the
+// index's bits streamed into the output (an int64 index fills a point, an
+// int32 one its x), else nothing (the kernel returns at once).
+template <typename I, bool kCopy>
+__global__ void __launch_bounds__(kThreads)
+floor_kernel(const I* __restrict__ idx, float2* __restrict__ out, int64_t n) {
+  const int64_t f0 = ((int64_t)blockIdx.x * kThreads + threadIdx.x) * kVec;
+  if (!kCopy || f0 >= n) return;
+  const int64_t left = n - f0;
+  long long id[kVec];
+  float2 v[kVec];
+  load_indices<kVec>(idx + f0, id, left);
 #pragma unroll
-    for (int j = 0; j < V; ++j)
-      if (f0 + j < n) store_point<kHints>(out + f0 + j, v[j]);
-  }
+  for (int j = 0; j < kVec; ++j)
+    v[j] = make_float2(__int_as_float((int)id[j]),
+                       sizeof(I) == 8 ? __int_as_float((int)(id[j] >> 32)) : 0.f);
+  store_points<kVec>(out + f0, v, left);
 }
 
-template <typename I, int V, bool kHints>
-void launch(const void* src, const void* idx, void* out, int NS, int P, int64_t n, int mode,
-            cudaStream_t s) {
-  const int64_t threads = (n + V - 1) / V;
-  const unsigned grid = (unsigned)((threads + kThreads - 1) / kThreads);
-  const float2* sp = static_cast<const float2*>(src);
-  const I* ip = static_cast<const I*>(idx);
-  float2* op = static_cast<float2*>(out);
-  if (mode == kGather)
-    gather_kernel<I, V, kHints, kGather><<<grid, kThreads, 0, s>>>(sp, ip, op, NS, P, n);
-  else if (mode == kStream)
-    gather_kernel<I, V, kHints, kStream><<<grid, kThreads, 0, s>>>(sp, ip, op, NS, P, n);
-  else
-    gather_kernel<I, V, kHints, kEmpty><<<grid, kThreads, 0, s>>>(sp, ip, op, NS, P, n);
+unsigned grid_for(int64_t n, int V) { return (unsigned)(((n + V - 1) / V + kThreads - 1) / kThreads); }
+
+// Whether idx and out take kVec-point vectors: the index aligned to
+// min(16, kVec * index_bytes) bytes, the output to 16.
+bool vector_aligned(const void* idx, const void* out, int index_bytes) {
+  const int need = kVec * index_bytes < 16 ? kVec * index_bytes : 16;
+  return (uintptr_t)idx % need == 0 && (uintptr_t)out % 16 == 0;
 }
 
-template <typename I>
-int dispatch(const void* src, const void* idx, void* out, int NS, int P, int64_t n, int vec,
-             int hints, int mode, cudaStream_t s) {
-#define CASE(V)                                                          \
-  if (vec == V) {                                                        \
-    if (hints) launch<I, V, true>(src, idx, out, NS, P, n, mode, s);     \
-    else launch<I, V, false>(src, idx, out, NS, P, n, mode, s);          \
-    return (int)cudaGetLastError();                                      \
-  }
-  CASE(1)
-  CASE(2)
-  CASE(4)
-  CASE(8)
-#undef CASE
-  return (int)cudaErrorInvalidValue;
+// The grid's block count fits gridDim.x at one point a thread.
+bool sizes_ok(int G, int NS, int P, int index_bytes) {
+  return G >= 1 && NS >= 1 && P >= 1 && (index_bytes == 4 || index_bytes == 8) &&
+         ((int64_t)G * P + kThreads - 1) / kThreads < ((int64_t)1 << 31);
 }
 
 }  // namespace
 
 // src [G, NS, 2] float32 (8-byte aligned), idx [G, P] int64 (index_bytes = 8)
 // or int32 (index_bytes = 4), out [G, P, 2] float32; all contiguous on the
-// current device. vec (1, 2, 4 or 8) points a thread, hints (0 or 1) the
-// streaming cache hints on the index and the output, mode 0 the gather (1
-// and 2 the floors: a streaming copy of the index into the output, an empty
-// kernel on the same grid), as ops/gather_cuda.py::launch_plan gives them.
-// For vec > 1 the index must be aligned to min(16, vec * index_bytes) bytes
-// and the output to 16. Returns cudaGetLastError() after the launch (0 =
-// launched), or cudaErrorInvalidValue for arguments it does not take.
+// current device. vec points a thread: 4 (the index aligned to min(16, 4 *
+// index_bytes) bytes and the output to 16) or 1, as
+// ops/gather_cuda.py::points_per_thread gives it. Returns
+// cudaGetLastError() after the launch (0 = launched), or
+// cudaErrorInvalidValue for arguments it does not take.
 extern "C" int gather_points(const void* src, const void* idx, void* out, int G, int NS, int P,
-                             int index_bytes, int vec, int hints, int mode, void* stream) {
+                             int index_bytes, int vec, void* stream) {
   const int bad = (int)cudaErrorInvalidValue;
-  if (G < 1 || NS < 1 || P < 1 || (index_bytes != 4 && index_bytes != 8) || mode < 0 ||
-      mode > 2 || (hints != 0 && hints != 1))
+  if ((vec != 1 && vec != kVec) || !sizes_ok(G, NS, P, index_bytes) ||
+      (vec == kVec && !vector_aligned(idx, out, index_bytes)))
     return bad;
   const int64_t n = (int64_t)G * P;
-  if ((n + vec - 1) / vec / kThreads >= (int64_t)1 << 31) return bad;
-  if (vec > 1) {
-    const uintptr_t ia = (uintptr_t)idx, oa = (uintptr_t)out;
-    const int need = vec * index_bytes < 16 ? vec * index_bytes : 16;
-    if (ia % need || oa % 16) return bad;
-  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return index_bytes == 8 ? dispatch<long long>(src, idx, out, NS, P, n, vec, hints, mode, s)
-                          : dispatch<int>(src, idx, out, NS, P, n, vec, hints, mode, s);
+  const float2* sp = static_cast<const float2*>(src);
+  float2* op = static_cast<float2*>(out);
+  const unsigned grid = grid_for(n, vec);
+  if (index_bytes == 8) {
+    const long long* ip = static_cast<const long long*>(idx);
+    if (vec == kVec) gather_kernel<long long, kVec><<<grid, kThreads, 0, s>>>(sp, ip, op, NS, P, n);
+    else gather_kernel<long long, 1><<<grid, kThreads, 0, s>>>(sp, ip, op, NS, P, n);
+  } else {
+    const int* ip = static_cast<const int*>(idx);
+    if (vec == kVec) gather_kernel<int, kVec><<<grid, kThreads, 0, s>>>(sp, ip, op, NS, P, n);
+    else gather_kernel<int, 1><<<grid, kThreads, 0, s>>>(sp, ip, op, NS, P, n);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The gather's floors on its grid at 4 points a thread, for measurement:
+// mode 0 a streaming copy of idx's bits into out (idx and out as
+// gather_points takes them at vec 4), mode 1 an empty kernel. Returns as
+// gather_points does.
+extern "C" int gather_floor(const void* idx, void* out, int G, int P, int index_bytes, int mode,
+                            void* stream) {
+  if ((mode != 0 && mode != 1) || !sizes_ok(G, 1, P, index_bytes) ||
+      !vector_aligned(idx, out, index_bytes))
+    return (int)cudaErrorInvalidValue;
+  const int64_t n = (int64_t)G * P;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float2* op = static_cast<float2*>(out);
+  const unsigned grid = grid_for(n, kVec);
+  if (index_bytes == 8) {
+    const long long* ip = static_cast<const long long*>(idx);
+    if (mode == 0) floor_kernel<long long, true><<<grid, kThreads, 0, s>>>(ip, op, n);
+    else floor_kernel<long long, false><<<grid, kThreads, 0, s>>>(ip, op, n);
+  } else {
+    const int* ip = static_cast<const int*>(idx);
+    if (mode == 0) floor_kernel<int, true><<<grid, kThreads, 0, s>>>(ip, op, n);
+    else floor_kernel<int, false><<<grid, kThreads, 0, s>>>(ip, op, n);
+  }
+  return (int)cudaGetLastError();
 }

@@ -60,21 +60,23 @@
 //  * "grouped": the staged kernel where the whole slice and 32 warps' tables
 //    do not fit one block (TTA's 384^2 branch: S = 3024, 193,536 B of bf16
 //    slice, 387,072 B of fp32). A block of 24-32 warps stages the whole
-//    slice or one of `groups` channel groups of it, [S, D / groups], and
-//    computes those channels of its chunk's queries; the groups of a (b, m,
-//    chunk) are neighbours in the grid, so the second reads the locations
-//    and weights from L2, and each output row is still stored once, a
-//    group's channels by its block. A query keeps the whole slice's G lanes,
-//    each taking D / (groups * G) channels (2 at D = 32 and 2 groups: a
-//    float2 or a bf16 pair), so the tables a warp stay those of the staged
-//    plan. The plan takes the fewest groups whose block holds 24 warps or
-//    more: the whole bf16 slice at 24 warps, 2 fp32 groups at 24 warps
-//    (230,400 B each), in 4 and 2 query chunks. Measured against the other
-//    layouts (scripts/bench_deform_fwd_plans.py; PERF.md, K1 findings): 2
-//    bf16 groups at 32 warps 13% slower, 4 groups or 16-20 warps slower
-//    still. Tried and dropped: D / groups / 4 lanes a query (more queries a
-//    warp, so the tables grow as the rows shrink), slower at every count;
-//    the first queries' tables made while the staging copies land, slower.
+//    slice (the staged kernel as it is, at fewer warps) or, in fp32, one of
+//    `groups` channel groups of it, [S, D / groups], and computes those
+//    channels of its chunk's queries; the groups of a (b, m, chunk) are
+//    neighbours in the grid, so the second reads the locations and weights
+//    from L2, and each output row is still stored once, a group's channels
+//    by its block. A query keeps the whole slice's G lanes, each taking D /
+//    (groups * G) channels (2 at D = 32 and 2 groups: a float2), so the
+//    tables a warp stay those of the staged plan. The plan takes the fewest
+//    groups whose block holds 24 warps or more: the whole bf16 slice at 24
+//    warps, 2 fp32 groups at 24 warps (230,400 B each), in 4 and 2 query
+//    chunks. Measured against the other layouts
+//    (scripts/bench_deform_fwd_plans.py; PERF.md, K1 findings): 2 bf16
+//    groups at 32 warps 13% slower than the whole slice at 24 (so bf16 has
+//    no channel groups), 4 groups or 16-20 warps slower still. Tried and
+//    dropped: D / groups / 4 lanes a query (more queries a warp, so the
+//    tables grow as the rows shrink), slower at every count; the first
+//    queries' tables made while the staging copies land, slower.
 //  * corners outside their level have weight 0 and are skipped (no read), as
 //    in the plain version's zero padding.
 // The TPU kernel's tent matrices, one-hot matmuls, 128-lane level padding,
@@ -289,11 +291,13 @@ __device__ __forceinline__ void stage_rows(T* dst, const T* src, int rows, int D
 // blockIdx.x = (m * chunks + chunk) * groups + cg, blockIdx.y = b;
 // blockDim.x / 32 warps. The block stages and computes the channels
 // [cg * Dg, (cg + 1) * Dg) of head m: the whole slice, Dg = D, in the
-// staged plan (kGrouped false: groups 1 and cg 0 are constants, so the
-// plan compiles to the code it had before groups existed; with them at run
-// time the bf16 kernel spilled and ran slower at 224^2), a channel group
-// of it, Dg = D / groups, in the grouped plan. The groups of one (head, chunk) are neighbours in the
-// grid, so the locations and weights that each reads in turn come from L2.
+// staged plan, a channel group of it, Dg = D / groups, in the grouped plan
+// (fp32 only). groups is not a parameter: the grouped kernel reads it from
+// the grid (gridDim.x = M * chunks * groups), and with kGrouped false it is
+// the constant 1, so the staged plan's kernel takes the parameters and
+// compiles to the code it had before groups existed. The groups
+// of one (head, chunk) are neighbours in the grid, so the locations and
+// weights that each reads in turn come from L2.
 // Dynamic shared memory: the rows ([S, Dg] of T, `slice_bytes` reserved, a
 // multiple of 16), then each warp's corner table (32 / G queries x L * P
 // points).
@@ -301,8 +305,8 @@ template <typename T, int kVec, bool kGrouped>
 __global__ void __launch_bounds__(1024)
 ms_deform_attn_fwd_staged(const T* __restrict__ value, const float* __restrict__ loc,
                           const float* __restrict__ attw, T* __restrict__ out, int S, int Lq,
-                          int M, int D, int L, int P, Levels lv, int chunk, int chunks,
-                          int groups, int G, int slice_bytes, int vec16) {
+                          int M, int D, int L, int P, Levels lv, int chunk, int chunks, int G,
+                          int slice_bytes, int vec16) {
   extern __shared__ __align__(16) unsigned char smem[];
   T* vs = reinterpret_cast<T*>(smem);
   const int warps = blockDim.x >> 5;
@@ -313,9 +317,14 @@ ms_deform_attn_fwd_staged(const T* __restrict__ value, const float* __restrict__
   Corners* table = reinterpret_cast<Corners*>(smem + slice_bytes);
   Corners* mine_tab = table + (warp * qpw + slot) * LP;  // this lane's query's points
 
-  const int mc = kGrouped ? blockIdx.x / groups : blockIdx.x;
+  // the block's (head, chunk) and channel group; unsigned as blockIdx is, so
+  // that with kGrouped false this is the staged kernel's own arithmetic (as
+  // signed ints the bf16 kernel took 32 registers instead of 30 and ran 3%
+  // slower at 224^2)
+  const unsigned groups = kGrouped ? gridDim.x / (M * chunks) : 1;
+  const unsigned mc = kGrouped ? blockIdx.x / groups : blockIdx.x;
   const int cg = kGrouped ? blockIdx.x - mc * groups : 0;
-  const int Dg = kGrouped ? D / groups : D;  // the channels staged
+  const int Dg = kGrouped ? D / (int)groups : D;  // the channels staged
   const int m = mc / chunks, b = blockIdx.y;
   const int q_begin = (mc - m * chunks) * chunk;
   const int q_end = min(Lq, q_begin + chunk);
@@ -420,7 +429,7 @@ int launch_staged(const void* value, const void* loc, const void* attw, void* ou
   ms_deform_attn_fwd_staged<T, kVec, kGrouped><<<dim3(grid_x, B), threads, smem, s>>>(
       static_cast<const T*>(value), static_cast<const float*>(loc),
       static_cast<const float*>(attw), static_cast<T*>(out), S, Lq, M, D, L, P, lv, chunk,
-      grid_x / (M * groups), groups, G, slice_bytes, vec16);
+      grid_x / (M * groups), G, slice_bytes, vec16);
   return (int)cudaGetLastError();
 }
 
@@ -431,7 +440,7 @@ int launch_staged(const void* value, const void* loc, const void* attw, void* ou
 // staged, 2 grouped), threads per block, the query chunk (queries a
 // block; 0 for global), grid x (blocks per frame; the grid has B rows),
 // dynamic shared-memory bytes, the channel groups a (frame, head) (1 for
-// staged and global), then (H_l, W_l) for the L <= 4 levels in value's level
+// staged, global and bf16), then (H_l, W_l) for the L <= 4 levels in value's level
 // order (ops/deform_attn_cuda.py::fwd_plan_args). Returns
 // cudaGetLastError() after the launch (0 = launched), or the error that
 // stopped it.
@@ -481,8 +490,8 @@ extern "C" int ms_deform_attn_fwd(const void* value, const void* loc, const void
   const int lanes = (D + vec - 1) / vec;
   int G = 1;
   while (G < lanes && G < 32) G *= 2;
-  if (groups > 1) {
-    if (Dg % G) return bad;
+  if (groups > 1) {  // channel groups are fp32's (the bf16 plan stages whole slices)
+    if (dtype != 0 || Dg % G) return bad;
     vec = Dg / G;
     if (vec != 1 && vec != 2 && vec != 4) return bad;
   }
@@ -501,13 +510,8 @@ extern "C" int ms_deform_attn_fwd(const void* value, const void* loc, const void
     if (vec == 2) return LAUNCH_STAGED(__nv_bfloat16, 2, false);
     return LAUNCH_STAGED(__nv_bfloat16, 1, false);
   }
-  if (dtype == 0) {
-    if (vec == 4) return LAUNCH_STAGED(float, 4, true);
-    if (vec == 2) return LAUNCH_STAGED(float, 2, true);
-    return LAUNCH_STAGED(float, 1, true);
-  }
-  if (vec == 4) return LAUNCH_STAGED(__nv_bfloat16, 4, true);
-  if (vec == 2) return LAUNCH_STAGED(__nv_bfloat16, 2, true);
-  return LAUNCH_STAGED(__nv_bfloat16, 1, true);
+  if (vec == 4) return LAUNCH_STAGED(float, 4, true);
+  if (vec == 2) return LAUNCH_STAGED(float, 2, true);
+  return LAUNCH_STAGED(float, 1, true);
 #undef LAUNCH_STAGED
 }

@@ -11,8 +11,8 @@ autograd. There is no fallback from one to the other.
 The forward has three plans on two kernels: "staged" (each (frame, head)
 value slice copied to shared memory, a 32-warp block per (frame, head,
 query chunk)), "grouped" (the staged kernel where that block does not fit:
-a smaller block on the whole slice or on a channel group of it) and
-"global" (corner rows gathered from global memory); `fwd_launch_plan`
+a smaller block on the whole slice or, in fp32, on a channel group of it)
+and "global" (corner rows gathered from global memory); `fwd_launch_plan`
 picks one, and the query chunk, block size and groups. The backward has
 two kernels, "level_slice" (dvalue summed per (frame, head, level) in shared
 memory) and "global" (global atomics); `bwd_launch_plan` picks one. Both plans are pure
@@ -118,7 +118,8 @@ class FwdLaunchPlan(NamedTuple):
         computes the chunk's queries from it), "grouped" (the staged kernel
         where that block does not fit: a block of 24-32 warps per (frame,
         head, query chunk, channel group) stages the slice's D / groups
-        channels of that group, all of them when groups is 1) or "global"
+        channels of that group, all of them when groups is 1, as in bf16)
+        or "global"
         (one warp per (frame, query, head) gathers corner rows from global
         memory);
     threads: threads per block;
@@ -126,8 +127,8 @@ class FwdLaunchPlan(NamedTuple):
     blocks_per_frame: the grid's x extent; the grid has one row per frame;
     smem_bytes: dynamic shared memory per block (`staged_bytes`; 0 for
         "global");
-    groups: channel groups per (frame, head) (1 for "staged" and
-        "global")."""
+    groups: channel groups per (frame, head) (1 for "staged", "global"
+        and bf16)."""
 
     kernel: str
     threads: int
@@ -161,11 +162,15 @@ def staged_bytes(levels: Sequence[Tuple[int, int]], D: int, P: int, esize: int,
 
 def grouped_fits(D: int, esize: int, groups: int) -> bool:
     """Whether D splits into `groups` channel groups for the grouped plan
-    (1: the whole slice): for 2 groups or more, each group's channels a
-    multiple of the staged lanes, at most 4 a lane, and its rows a multiple
-    of 16 bytes (copied 16 bytes at a time)."""
+    (1: the whole slice): for 2 groups or more, fp32 only (bf16's whole
+    slice at 24 warps was faster than 2 groups at 32, and the TTA's bf16
+    slice fits whole), each group's channels a multiple of the staged
+    lanes, at most 4 a lane, and its rows a multiple of 16 bytes (copied 16
+    bytes at a time)."""
     if groups == 1:
         return True
+    if esize != 4:
+        return False
     lanes = staged_lanes(D, esize)
     Dg = D // groups
     return (D % groups == 0 and Dg % lanes == 0 and Dg // lanes in (1, 2, 4)

@@ -7,7 +7,7 @@ with 0 <= idx < NS. A CPU tensor takes the plain version, `torch.gather`; a
 CUDA tensor launches the kernel, which takes the indices as given (they come
 from `torch.topk`; a range check on the device would synchronise every call).
 
-`launch_plan` sets the kernel's points a thread and its cache hints, a pure
+`points_per_thread` sets the kernel's points a thread, 4 or 1, a pure
 function of the index's element size and the pointers' alignment.
 `gather_floor_cuda` runs the kernel's two floors (an empty kernel on the
 same grid, a streaming copy of the index into the output) for measurement;
@@ -20,8 +20,6 @@ it is launched and nowhere else (not by the floors).
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional
-
 import torch
 
 from combo_avs_torch.ops import _build
@@ -29,45 +27,40 @@ from combo_avs_torch.ops import _build
 SOURCE = "gather.cu"
 
 launches = 0
-# gather_points(src, idx, out, G, NS, P, index_bytes, vec, hints, mode, stream)
-ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-MODES = ("gather", "stream", "empty")  # the C function's mode codes 0, 1, 2
-# points a thread, and whether the index and the output stream past L2, where
-# the pointers allow them (scripts/bench_gather_plans.py: fastest of 1, 2, 4
-# and 8 with and without the hints at the criterion's shape)
-PLAN_VEC, PLAN_HINTS = 4, True
-_bound = None  # the ctypes function, bound once per process
+# the C functions' parameters, as ctypes passes them
+ARGTYPES = {
+    # gather_points(src, idx, out, G, NS, P, index_bytes, vec, stream)
+    "gather_points": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    # gather_floor(idx, out, G, P, index_bytes, mode, stream)
+    "gather_floor": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+}
+FLOORS = ("stream", "empty")  # gather_floor's mode codes 0, 1
+# points a thread where the pointers allow 16-byte vectors (4 was the
+# fastest of 1, 2, 4 and 8 at the criterion's shape in int64; PERF.md, K6
+# findings)
+VEC = 4
+_bound = {}  # the ctypes functions, bound once per process
 
 
-class GatherPlan(NamedTuple):
-    """How `csrc/gather.cu` runs: `vec` consecutive points a thread (1, 2, 4
-    or 8) on a flat grid of 256-thread blocks over G x P, the index and the
-    output streamed past L2 (`hints`) or not."""
-
-    vec: int
-    hints: bool
-
-
-def launch_plan(index_bytes: int, idx_ptr: int, out_ptr: int) -> GatherPlan:
-    """PLAN_VEC points a thread with PLAN_HINTS, or one point a thread
-    where the index is not aligned to min(16, PLAN_VEC * index_bytes) bytes or
-    the output to 16 (then it takes no vector loads or stores)."""
-    aligned = idx_ptr % min(16, PLAN_VEC * index_bytes) == 0 and out_ptr % 16 == 0
-    return GatherPlan(PLAN_VEC if aligned else 1, PLAN_HINTS)
+def points_per_thread(index_bytes: int, idx_ptr: int, out_ptr: int) -> int:
+    """VEC points a thread, or one where the index is not aligned to
+    min(16, VEC * index_bytes) bytes or the output to 16 (then the kernel
+    takes no vector loads or stores)."""
+    aligned = idx_ptr % min(16, VEC * index_bytes) == 0 and out_ptr % 16 == 0
+    return VEC if aligned else 1
 
 
 def gather_points_plain(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(src, 1, idx.long()[..., None].expand(-1, -1, src.shape[-1]))
 
 
-def _kernel():
-    global _bound
-    if _bound is None:
-        fn = _build.load(SOURCE).gather_points
-        fn.argtypes = ARGTYPES
+def _kernel(name: str):
+    if name not in _bound:
+        fn = getattr(_build.load(SOURCE), name)
+        fn.argtypes = ARGTYPES[name]
         fn.restype = ctypes.c_int
-        _bound = fn
-    return _bound
+        _bound[name] = fn
+    return _bound[name]
 
 
 def _check(src: torch.Tensor, idx: torch.Tensor, name: str):
@@ -90,40 +83,40 @@ def _check(src: torch.Tensor, idx: torch.Tensor, name: str):
     return G, NS, P
 
 
-def _launch(src, idx, mode: str, plan: Optional[GatherPlan], name: str) -> torch.Tensor:
-    G, NS, P = _check(src, idx, name)
-    out = torch.empty((G, P, 2), dtype=torch.float32, device=src.device)
-    if plan is None:
-        plan = launch_plan(idx.element_size(), idx.data_ptr(), out.data_ptr())
-    err = _kernel()(src.data_ptr(), idx.data_ptr(), out.data_ptr(), G, NS, P,
-                    idx.element_size(), plan.vec, int(plan.hints), MODES.index(mode),
-                    torch._C._cuda_getCurrentRawStream(src.get_device()))
+def _raise_on(err: int, what: str):
     if err != 0:
-        raise RuntimeError(f"{name} ({mode}, {plan}) launch failed: CUDA error {err}")
-    return out
+        raise RuntimeError(f"{what} launch failed: CUDA error {err}")
 
 
-def gather_points_cuda(src: torch.Tensor, idx: torch.Tensor,
-                       plan: Optional[GatherPlan] = None) -> torch.Tensor:
+def gather_points_cuda(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Launch the kernel on contiguous CUDA tensors: src [G, NS, 2] float32,
-    idx [G, P] int64 or int32 -> [G, P, 2] float32. `plan` is
-    `launch_plan`'s choice unless the caller names another (to check or
-    time it); a launch that fails raises, whatever the plan."""
+    idx [G, P] int64 or int32 -> [G, P, 2] float32, at `points_per_thread`
+    points a thread; a launch that fails raises."""
     global launches
-    out = _launch(src, idx, "gather", plan, "gather_points_cuda")
+    G, NS, P = _check(src, idx, "gather_points_cuda")
+    out = torch.empty((G, P, 2), dtype=torch.float32, device=src.device)
+    vec = points_per_thread(idx.element_size(), idx.data_ptr(), out.data_ptr())
+    _raise_on(_kernel("gather_points")(
+        src.data_ptr(), idx.data_ptr(), out.data_ptr(), G, NS, P, idx.element_size(), vec,
+        torch._C._cuda_getCurrentRawStream(src.get_device())), f"gather_points_cuda ({vec})")
     launches += 1
     return out
 
 
-def gather_floor_cuda(src: torch.Tensor, idx: torch.Tensor, mode: str,
-                      plan: Optional[GatherPlan] = None) -> torch.Tensor:
-    """One of the gather's floors on its grid and plan, for measurement:
-    "empty" (the kernel returns at once; the output is left unwritten) or
-    "stream" (the index's bits copied into the output, no gather). Not
-    counted in `launches`."""
-    if mode not in ("empty", "stream"):
+def gather_floor_cuda(src: torch.Tensor, idx: torch.Tensor, mode: str) -> torch.Tensor:
+    """One of the gather's floors on its grid at VEC points a thread, for
+    measurement: "empty" (the kernel returns at once; the output is left
+    unwritten) or "stream" (the index's bits copied into the output, no
+    gather); the index and output must take VEC-point vectors. Not counted
+    in `launches`."""
+    if mode not in FLOORS:
         raise ValueError(f"gather_floor_cuda: mode {mode!r} is not 'empty' or 'stream'")
-    return _launch(src, idx, mode, plan, "gather_floor_cuda")
+    G, _, P = _check(src, idx, "gather_floor_cuda")
+    out = torch.empty((G, P, 2), dtype=torch.float32, device=src.device)
+    _raise_on(_kernel("gather_floor")(
+        idx.data_ptr(), out.data_ptr(), G, P, idx.element_size(), FLOORS.index(mode),
+        torch._C._cuda_getCurrentRawStream(src.get_device())), f"gather_floor_cuda ({mode})")
+    return out
 
 
 def gather_points(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

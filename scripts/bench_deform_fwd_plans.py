@@ -11,9 +11,10 @@ The C function executes whatever plan it is given, so each alternative is
 one call with another plan: at the eval and training shapes, whose whole
 slice fits a 32-warp block, the staged kernel (the whole (frame, head) value
 slice in shared memory) at 8-32 warps a block and 1-8 query chunks per
-(frame, head), and the grouped plan on channel groups at 32 warps and the
-chosen chunks; at the 384^2 shape, the whole slice at fewer warps and each
-channel-group count that `grouped_fits` takes, at 16-32 warps and 2-6
+(frame, head), and (fp32) the grouped plan on channel groups at 32 warps
+and the chosen chunks; at the 384^2 shape, the whole slice at fewer warps
+and each channel-group count that `grouped_fits` takes (fp32), at 16-32
+warps and 2-6
 chunks, wherever the block's shared memory fits the card's opt-in limit;
 and the global kernel. Each result must agree with the plain version within
 chip_smoke.py's K1 tolerance; each time is device ms

@@ -80,26 +80,44 @@ def test_fallback_on_cpu_is_exact_top_k():
         assert a == {tuple(p) for p in want[m].tolist()}
 
 
-# (index bytes, index address, output address) -> (points a thread, hints): 4 points a thread
-# where the index is aligned to min(16, 4 x its bytes) and the output to 16, else 1
+# (index bytes, index address, output address) -> points a thread: 4 where the index is
+# aligned to min(16, 4 x its bytes) and the output to 16, else 1
 GATHER_PLANS = {
-    "aligned_int64": ((8, 0x7f0000000000, 0x7f0000100000), (4, True)),
-    "aligned_int32": ((4, 0x7f0000000000, 0x7f0000100000), (4, True)),
-    "index_8_bytes_off": ((8, 0x7f0000000008, 0x7f0000100000), (1, True)),
-    "int32_index_8_bytes_off": ((4, 0x7f0000000008, 0x7f0000100000), (1, True)),
-    "output_8_bytes_off": ((8, 0x7f0000000000, 0x7f0000100008), (1, True)),
+    "aligned_int64": ((8, 0x7f0000000000, 0x7f0000100000), 4),
+    "aligned_int32": ((4, 0x7f0000000000, 0x7f0000100000), 4),
+    "index_8_bytes_off": ((8, 0x7f0000000008, 0x7f0000100000), 1),
+    "int32_index_8_bytes_off": ((4, 0x7f0000000008, 0x7f0000100000), 1),
+    "output_8_bytes_off": ((8, 0x7f0000000000, 0x7f0000100008), 1),
 }
 
 
 @pytest.mark.parametrize("case", sorted(GATHER_PLANS))
 def test_gather_launch_plan(case):
-    """K6's launch plan is a pure function of the index's element size and
-    the two addresses' alignment (the kernel cannot run here)."""
+    """K6's points a thread are a pure function of the index's element size
+    and the two addresses' alignment (the kernel cannot run here)."""
     args, want = GATHER_PLANS[case]
-    assert tuple(gather_cuda.launch_plan(*args)) == want
+    assert gather_cuda.points_per_thread(*args) == want
 
 
-def test_argtypes_match_the_c_signature():
+def test_cuda_wrappers_refuse_before_any_launch():
+    """The kernel's wrappers refuse what they do not take before they build
+    or launch anything: CPU tensors (no fallback to the plain version) and
+    a floor that does not exist."""
+    src = torch.rand((2, 5, 2))
+    idx = torch.zeros((2, 3), dtype=torch.int64)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        gather_cuda.gather_points_cuda(src, idx)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        gather_cuda.gather_floor_cuda(src, idx, "stream")
+    with pytest.raises(ValueError, match="'copy' is not"):
+        gather_cuda.gather_floor_cuda(src, idx, "copy")
+
+
+@pytest.mark.parametrize("name", sorted(gather_cuda.ARGTYPES))
+def test_argtypes_match_the_c_signature(name):
+    """ctypes passes exactly the C functions' arguments, the gather's and
+    its floors' (a count or a type off would shift the stream into an
+    int)."""
     from tests.test_torch_point_sample import c_signature
 
-    assert gather_cuda.ARGTYPES == c_signature(gather_cuda.SOURCE, "gather_points")
+    assert gather_cuda.ARGTYPES[name] == c_signature(gather_cuda.SOURCE, name)

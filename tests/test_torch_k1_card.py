@@ -112,23 +112,39 @@ def test_k1_grouped_plan_matches_plain(cuda_device, dtype, tol, shape):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("groups", [2, 4])
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, K1_TOL_FP32), (torch.bfloat16, K1_TOL_BF16)])
-def test_k1_channel_groups_match_plain(cuda_device, dtype, tol, groups):
-    """The grouped kernel on 2 and 4 channel groups at TTA's 384^2 shape
-    (2 or 1 channels a lane), forced at 24 warps and 2 chunks, matches the
-    plain version in both dtypes, whichever the plan picks."""
+def test_k1_channel_groups_match_plain(cuda_device, groups):
+    """The grouped kernel on 2 and 4 fp32 channel groups at TTA's 384^2
+    shape (2 or 1 channels a lane), forced at 24 warps and 2 chunks,
+    matches the plain version, whichever the plan picks."""
     s = TTA384
-    value, loc, w = k1_inputs(s["b"], s["m"], s["d"], 4, s["levels"], s["lq"], dtype,
+    value, loc, w = k1_inputs(s["b"], s["m"], s["d"], 4, s["levels"], s["lq"], torch.float32,
                               cuda_device, seed=9)
-    plan = deform_attn_cuda.staged_plan(s["levels"], s["lq"], s["m"], s["d"], 4,
-                                        value.element_size(), 768, 2, groups, "grouped")
+    plan = deform_attn_cuda.staged_plan(s["levels"], s["lq"], s["m"], s["d"], 4, 4, 768, 2,
+                                        groups, "grouped")
     assert plan.smem_bytes <= deform_attn_cuda.smem_optin(cuda_device.index)
     with torch.inference_mode():
         got = deform_attn_cuda.ms_deform_attn_cuda(value, s["levels"], loc, w, plan=plan)
         want = ms_deform_attn_plain(value, s["levels"], loc, w)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
-    assert err <= tol * want.float().abs().max().item()
+    assert err <= K1_TOL_FP32 * want.float().abs().max().item()
+
+
+@pytest.mark.gpu
+def test_k1_bf16_channel_groups_are_refused(cuda_device):
+    """bf16 has no channel groups (its grouped plan stages the whole slice):
+    a forced bf16 plan of 2 groups, though it fits the card, is refused by
+    the launch, which raises."""
+    s = TTA384
+    value, loc, w = k1_inputs(s["b"], s["m"], s["d"], 4, s["levels"], s["lq"], torch.bfloat16,
+                              cuda_device, seed=9)
+    plan = deform_attn_cuda.staged_plan(s["levels"], s["lq"], s["m"], s["d"], 4, 2, 768, 2, 2,
+                                        "grouped")
+    assert plan.smem_bytes <= deform_attn_cuda.smem_optin(cuda_device.index)
+    before = deform_attn_cuda.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        deform_attn_cuda.ms_deform_attn_cuda(value, s["levels"], loc, w, plan=plan)
+    assert deform_attn_cuda.launches == before
 
 
 @pytest.mark.gpu

@@ -121,18 +121,22 @@ def test_k6_matches_gather(cuda_device, shape, index_dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("index_dtype", [torch.int64, torch.int32])
 def test_k6_every_plan_matches_gather(cuda_device, index_dtype):
-    """Each launch plan (1, 2, 4 or 8 points a thread, with and without the
-    streaming hints) equals torch.gather at a ragged shape (3 x 1001
-    points, no multiple of 8), and a plan's floors launch on its grid."""
+    """Both of the kernel's widths (4 points a thread on an aligned index,
+    1 on an index 8 bytes past a 16-byte boundary) equal torch.gather at a
+    ragged shape (3 x 1001 points, no multiple of 4), and the floors launch
+    on the gather's grid."""
     G, NS, P = 3, 1500, 1001
     g = torch.Generator(device=cuda_device).manual_seed(5)
     src = torch.randn((G, NS, 2), generator=g, device=cuda_device)
     idx = torch.randint(0, NS, (G, P), generator=g, device=cuda_device).to(index_dtype)
     want = gather_cuda.gather_points_plain(src, idx)
-    for vec in (1, 2, 4, 8):
-        for hints in (False, True):
-            plan = gather_cuda.GatherPlan(vec, hints)
-            assert torch.equal(gather_cuda.gather_points_cuda(src, idx, plan), want), plan
+    step = 8 // idx.element_size()
+    off = torch.empty(G * P + step, dtype=index_dtype, device=cuda_device)[step:].view(G, P)
+    off.copy_(idx)
+    for index, vec in ((idx, 4), (off, 1)):
+        assert gather_cuda.points_per_thread(index.element_size(), index.data_ptr(),
+                                             want.data_ptr()) == vec
+        assert torch.equal(gather_cuda.gather_points_cuda(src, index), want), vec
     before = gather_cuda.launches
     copied = gather_cuda.gather_floor_cuda(src, idx, "stream")
     gather_cuda.gather_floor_cuda(src, idx, "empty")
@@ -153,7 +157,7 @@ def test_k6_misaligned_index_takes_one_point_a_thread(cuda_device):
     idx = torch.randint(0, NS, (G * P + 1,), generator=g, device=cuda_device)[1:].view(G, P)
     assert idx.data_ptr() % 16 == 8
     out = torch.empty((G, P, 2), device=cuda_device)
-    assert gather_cuda.launch_plan(8, idx.data_ptr(), out.data_ptr()).vec == 1
+    assert gather_cuda.points_per_thread(8, idx.data_ptr(), out.data_ptr()) == 1
     assert torch.equal(gather_cuda.gather_points(src, idx),
                        gather_cuda.gather_points_plain(src, idx))
 
@@ -174,6 +178,16 @@ def test_k6_refuses_what_it_does_not_take(cuda_device):
         gather_cuda.gather_points_cuda(src, idx[:1])
     with pytest.raises(ValueError, match=r"\[G, NS, 2\]"):
         gather_cuda.gather_points_cuda(src[..., 0].contiguous(), idx)
+    # the C function refuses, before any arithmetic, a width it has no kernel
+    # for (0, 2, -4) and 4 points a thread on a misaligned index
+    out = torch.empty((2, 3, 2), device=cuda_device)
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+    fn = gather_cuda._kernel("gather_points")
+    for vec, index in ((0, idx), (2, idx), (-4, idx), (4, idx.reshape(-1)[1:].reshape(1, 5))):
+        assert fn(src.data_ptr(), index.data_ptr(), out.data_ptr(), 2, 5, 3, 8, vec,
+                  stream) == 1  # cudaErrorInvalidValue
+    with pytest.raises(RuntimeError, match="launch failed"):
+        gather_cuda.gather_floor_cuda(src[:1], idx.reshape(-1)[1:].reshape(1, 5), "stream")
 
 
 @pytest.mark.gpu
