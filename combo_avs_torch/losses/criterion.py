@@ -37,6 +37,7 @@ from combo_avs_torch.losses.matcher import HungarianMatcher
 from combo_avs_torch.ops.gather_cuda import gather_points, gather_points_plain
 from combo_avs_torch.ops.grid_sample import point_sample
 from combo_avs_torch.parallel import distributed
+from combo_avs_torch.utils import profiling
 
 # Chunk width of the stratified uncertain-point selection (the JAX package's
 # _STRAT_CHUNK): each chunk of candidates keeps a fixed quota of its most
@@ -184,8 +185,10 @@ class SetCriterion:
         src = torch.gather(pred_masks, 1, safe_assign[:, :, None, None].expand(-1, -1, h, w))
         src_f = _upcast32(src.reshape(N * K, h, w))
         tgt_f = _upcast32(tgt_masks.reshape(N * K, *tgt_masks.shape[2:]))
-        coords = uncertainty_sampled_points(src_f.detach(), candidates, tail, self.num_points,
-                                            self.importance_sample_ratio, self.exact_topk)
+        with profiling.span("combo.criterion.points"):
+            coords = uncertainty_sampled_points(src_f.detach(), candidates, tail,
+                                                self.num_points, self.importance_sample_ratio,
+                                                self.exact_topk)
         with torch.no_grad():
             point_labels = point_sample(tgt_f[..., None], coords)[..., 0]
         vmask = valid.reshape(N * K).to(torch.float32)
@@ -238,50 +241,53 @@ class SetCriterion:
         rows. `world` (default: one rank) is the ranks whose batches make the
         global one; with more than one, the losses are this rank's shares of
         the global losses (the module docstring)."""
-        world = world or distributed.World()
-        labels, tgt_masks = targets["labels"], targets["masks"]
-        N, K = labels.shape
-        device = outputs["pred_logits"].device
-        if frame_weight is None:
-            frame_weight = torch.ones((N,), dtype=torch.float32, device=device)
-        valid = targets["valid"] & (frame_weight[:, None] > 0)
-        weight_sum = n_videos = None
-        if world.size == 1:
-            num_masks = valid.sum().to(torch.float32).clamp(min=1.0)
-        else:
-            Q = outputs["pred_logits"].shape[1]
-            local = torch.stack([valid.sum().to(torch.float64),
-                                 self.class_weight_sum(valid, frame_weight, Q),
-                                 torch.tensor(float(N // self.cosine_n_frame),
-                                              dtype=torch.float64, device=device)])
-            total_masks, weight_sum, n_videos = world.all_sum_(local)
-            num_masks = total_masks.to(torch.float32).clamp(min=1.0)
+        with profiling.span("combo.criterion"):
+            world = world or distributed.World()
+            labels, tgt_masks = targets["labels"], targets["masks"]
+            N, K = labels.shape
+            device = outputs["pred_logits"].device
+            if frame_weight is None:
+                frame_weight = torch.ones((N,), dtype=torch.float32, device=device)
+            valid = targets["valid"] & (frame_weight[:, None] > 0)
+            weight_sum = n_videos = None
+            if world.size == 1:
+                num_masks = valid.sum().to(torch.float32).clamp(min=1.0)
+            else:
+                Q = outputs["pred_logits"].shape[1]
+                local = torch.stack([valid.sum().to(torch.float64),
+                                     self.class_weight_sum(valid, frame_weight, Q),
+                                     torch.tensor(float(N // self.cosine_n_frame),
+                                                  dtype=torch.float64, device=device)])
+                total_masks, weight_sum, n_videos = world.all_sum_(local)
+                num_masks = total_masks.to(torch.float32).clamp(min=1.0)
 
-        layers = [(outputs["pred_logits"], outputs["pred_masks"], "")] + [
-            (a["pred_logits"], a["pred_masks"], f"_{i}")
-            for i, a in enumerate(outputs.get("aux_outputs", []))]
-        if draws is None:
-            if generator is None:
-                raise ValueError("SetCriterion needs a generator or injected draws")
-            draws = [self.draw_shard(generator, N, K, world) for _ in layers]
-        if len(draws) != len(layers):
-            raise ValueError(f"{len(draws)} draws for {len(layers)} layers")
+            layers = [(outputs["pred_logits"], outputs["pred_masks"], "")] + [
+                (a["pred_logits"], a["pred_masks"], f"_{i}")
+                for i, a in enumerate(outputs.get("aux_outputs", []))]
+            if draws is None:
+                if generator is None:
+                    raise ValueError("SetCriterion needs a generator or injected draws")
+                draws = [self.draw_shard(generator, N, K, world) for _ in layers]
+            if len(draws) != len(layers):
+                raise ValueError(f"{len(draws)} draws for {len(layers)} layers")
 
-        assigns = self.matcher.match_layers(
-            [(pts, logits, masks, labels, tgt_masks, valid)
-             for (logits, masks, _), (pts, _, _) in zip(layers, draws)])
-        losses: Dict[str, torch.Tensor] = {}
-        for (logits, masks, suffix), (_, candidates, tail), assign in zip(layers, draws, assigns):
-            losses[f"loss_ce{suffix}"] = self._loss_labels(logits, labels, valid, assign,
-                                                           frame_weight, weight_sum)
-            lm, ld = self._loss_masks(masks, tgt_masks, valid, assign, num_masks,
-                                      candidates, tail)
-            losses[f"loss_mask{suffix}"] = lm
-            losses[f"loss_dice{suffix}"] = ld
+            assigns = self.matcher.match_layers(
+                [(pts, logits, masks, labels, tgt_masks, valid)
+                 for (logits, masks, _), (pts, _, _) in zip(layers, draws)])
+            losses: Dict[str, torch.Tensor] = {}
+            with profiling.span("combo.criterion.losses"):
+                for (logits, masks, suffix), (_, candidates, tail), assign in zip(
+                        layers, draws, assigns):
+                    losses[f"loss_ce{suffix}"] = self._loss_labels(logits, labels, valid, assign,
+                                                                   frame_weight, weight_sum)
+                    lm, ld = self._loss_masks(masks, tgt_masks, valid, assign, num_masks,
+                                              candidates, tail)
+                    losses[f"loss_mask{suffix}"] = lm
+                    losses[f"loss_dice{suffix}"] = ld
 
-        for i, middle in enumerate(outputs.get("middles_attn_mask", [])):
-            losses[f"loss_cosine_{i}"] = self._loss_cosine(middle, n_videos)
-        return losses
+                for i, middle in enumerate(outputs.get("middles_attn_mask", [])):
+                    losses[f"loss_cosine_{i}"] = self._loss_cosine(middle, n_videos)
+            return losses
 
 
 def build_weight_dict(cfg=None, dec_layers: int = 10, class_weight: float = 2.0,

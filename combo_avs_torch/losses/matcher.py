@@ -20,6 +20,7 @@ import torch
 
 from combo_avs_torch.ops.grid_sample import point_sample
 from combo_avs_torch.ops.lsap import solve_lsap_batch
+from combo_avs_torch.utils import profiling
 
 # Padding cost for invalid target slots: above any real cost (at most about
 # 12 = 2 CE + 5 BCE + 5 dice), small enough for float32 sums to resolve real
@@ -95,10 +96,12 @@ class HungarianMatcher:
         batch (the Jonker-Volgenant solver's fixed trip count then runs once
         a step, not once an output); each matrix is solved on its own, so
         the assignments are those of separate calls."""
-        costs = [torch.nan_to_num(self.cost_matrix(*args), nan=BIG_COST, posinf=BIG_COST,
-                                  neginf=-BIG_COST) for args in layers]
-        # rows = target slots, columns = queries (K <= Q)
-        assign = solve_lsap_batch(torch.cat(costs).transpose(1, 2))
+        with profiling.span("combo.criterion.match_cost"):
+            costs = [torch.nan_to_num(self.cost_matrix(*args), nan=BIG_COST, posinf=BIG_COST,
+                                      neginf=-BIG_COST) for args in layers]
+        with profiling.span("combo.criterion.lsap"):
+            # rows = target slots, columns = queries (K <= Q)
+            assign = solve_lsap_batch(torch.cat(costs).transpose(1, 2))
         valid = [args[5] for args in layers]
         return [torch.where(ok, a, torch.full_like(a, -1))
                 for ok, a in zip(valid, assign.split([c.shape[0] for c in costs]))]

@@ -19,6 +19,7 @@ from combo_avs_torch.models.fpn_decoder import PIXEL_DECODERS as FPN_DECODERS
 from combo_avs_torch.models.fusion import AUDIO_FEATURE_DIM, AudioMLP, AVFuse
 from combo_avs_torch.models.pixel_decoder import MSDeformAttnPixelDecoder
 from combo_avs_torch.models.transformer_decoder import MultiScaleMaskedTransformerDecoder
+from combo_avs_torch.utils import profiling
 
 PIXEL_DECODERS = {"MSDeformAttnPixelDecoder": MSDeformAttnPixelDecoder, **FPN_DECODERS}
 
@@ -69,9 +70,13 @@ class MaskFormerHead(nn.Module):
 
     def forward(self, features: Dict[str, torch.Tensor], audio_feature: torch.Tensor,
                 generator: Optional[torch.Generator] = None):
-        mask_features, _, multi_scale_features = self.pixel_decoder(features)
+        with profiling.span("combo.forward.pixel_decoder"):
+            mask_features, _, multi_scale_features = self.pixel_decoder(features)
         if self.late:
-            fused, audio = self.fusion_module({"res2": mask_features}, audio_feature, generator)
-            mask_features = fused["res2"]
-            audio_feature = self.audio_transformation(audio)
-        return self.predictor(multi_scale_features, audio_feature, mask_features)
+            with profiling.span("combo.forward.fusion"):
+                fused, audio = self.fusion_module({"res2": mask_features}, audio_feature,
+                                                  generator)
+                mask_features = fused["res2"]
+                audio_feature = self.audio_transformation(audio)
+        with profiling.span("combo.forward.predictor"):
+            return self.predictor(multi_scale_features, audio_feature, mask_features)

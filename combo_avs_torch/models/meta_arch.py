@@ -40,6 +40,7 @@ from combo_avs_torch.models.transformer_decoder import QUERIES_FUSE_TYPES
 from combo_avs_torch.models.vggish import VGGish
 from combo_avs_torch.ops import seminf_cuda
 from combo_avs_torch.ops.seminf_cuda import _upcast32
+from combo_avs_torch.utils import profiling
 
 PIXEL_MEAN = (123.675, 116.280, 103.530)
 PIXEL_STD = (58.395, 57.120, 57.375)
@@ -148,25 +149,30 @@ class MaskFormer(nn.Module):
     ) -> Dict[str, object]:
         B, T, H, W, _ = images.shape
         frames = self._normalize(images.reshape(B * T, H, W, 3))
-        # [B*T, 1, 128]
-        with torch.set_grad_enabled(torch.is_grad_enabled() and not self.freeze_audio):
-            audio_feature = self.audio_backbone(audio_log_mel.reshape(B * T, 1, 96, 64))[:, None, :]
-        if vid_temporal_mask is not None:
-            audio_feature = audio_feature * vid_temporal_mask.reshape(B * T, 1, 1).to(
-                audio_feature.dtype)
+        with profiling.span("combo.forward.audio"):
+            # [B*T, 1, 128]
+            with torch.set_grad_enabled(torch.is_grad_enabled() and not self.freeze_audio):
+                audio_feature = self.audio_backbone(
+                    audio_log_mel.reshape(B * T, 1, 96, 64))[:, None, :]
+            if vid_temporal_mask is not None:
+                audio_feature = audio_feature * vid_temporal_mask.reshape(B * T, 1, 1).to(
+                    audio_feature.dtype)
 
-        features = self.backbone(frames, dropout_generator)
-        if self.use_pre_sam:
-            if pre_masks is None:
-                raise ValueError("this model has the SEM tower: it needs pre_masks (Maskiges)")
-            pre_feats = self.pre_sam_backbone(self._normalize(pre_masks.reshape(B * T, H, W, 3)),
-                                              dropout_generator)
-            for i, key in enumerate(sorted(features)):
-                gate = self.scale_factor_module[i](pre_feats[key])
-                features[key] = features[key] + gate * pre_feats[key]
+        with profiling.span("combo.forward.towers"):
+            features = self.backbone(frames, dropout_generator)
+            if self.use_pre_sam:
+                if pre_masks is None:
+                    raise ValueError("this model has the SEM tower: it needs pre_masks "
+                                     "(Maskiges)")
+                pre_feats = self.pre_sam_backbone(
+                    self._normalize(pre_masks.reshape(B * T, H, W, 3)), dropout_generator)
+                for i, key in enumerate(sorted(features)):
+                    gate = self.scale_factor_module[i](pre_feats[key])
+                    features[key] = features[key] + gate * pre_feats[key]
         if self.early:
-            features, audio = self.fusion_module(features, audio_feature, dropout_generator)
-            audio_feature = self.audio_transformation(audio)
+            with profiling.span("combo.forward.fusion"):
+                features, audio = self.fusion_module(features, audio_feature, dropout_generator)
+                audio_feature = self.audio_transformation(audio)
         return self.sem_seg_head(features, audio_feature, dropout_generator)
 
 

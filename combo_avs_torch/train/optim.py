@@ -36,6 +36,8 @@ from typing import Callable, Dict, List
 import torch
 from torch import nn
 
+from combo_avs_torch.utils import profiling
+
 NORM_MODULE_TYPES = (nn.BatchNorm1d, nn.BatchNorm2d, nn.BatchNorm3d, nn.SyncBatchNorm,
                      nn.GroupNorm, nn.InstanceNorm1d, nn.InstanceNorm2d, nn.InstanceNorm3d,
                      nn.LayerNorm, nn.LocalResponseNorm)
@@ -169,15 +171,17 @@ class Optimizer:
         """One update from the parameters' `.grad`: a zero gradient where
         there is none, clip, set each group's lr to schedule(count) x its
         multiplier, the update."""
-        for p in self.params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        if self.clip_value > 0 and self.params:
-            clip_by_global_norm_([p.grad for p in self.params], self.clip_value)
-        lr = self.schedule(self.count)
-        for g in self.inner.param_groups:
-            g["lr"] = lr * g["lr_multiplier"]
-        self.inner.step()
+        with profiling.span("combo.optim.clip"):
+            for p in self.params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            if self.clip_value > 0 and self.params:
+                clip_by_global_norm_([p.grad for p in self.params], self.clip_value)
+        with profiling.span("combo.optim.update"):
+            lr = self.schedule(self.count)
+            for g in self.inner.param_groups:
+                g["lr"] = lr * g["lr_multiplier"]
+            self.inner.step()
         self.count += 1
 
 

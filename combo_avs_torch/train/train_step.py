@@ -31,6 +31,7 @@ from combo_avs_torch.losses.criterion import Draws, SetCriterion, total_loss
 from combo_avs_torch.models.meta_arch import semantic_inference
 from combo_avs_torch.parallel import distributed
 from combo_avs_torch.train.optim import Optimizer
+from combo_avs_torch.utils import profiling
 
 
 def _model_inputs(batch: Dict, dtype: torch.dtype,
@@ -104,12 +105,13 @@ def compute_losses(model: torch.nn.Module, criterion: SetCriterion, batch: Dict,
     it) gives this rank's shares of the global losses."""
     param = next(model.parameters())
     dropout_generator = dropout_generator or generator
-    if amp:
-        outputs = amp_forward(model, _model_inputs(batch, torch.bfloat16, param.device),
-                              dropout_generator)
-    else:
-        outputs = model(*_model_inputs(batch, param.dtype, param.device),
-                        dropout_generator=dropout_generator)
+    with profiling.span("combo.forward"):
+        if amp:
+            outputs = amp_forward(model, _model_inputs(batch, torch.bfloat16, param.device),
+                                  dropout_generator)
+        else:
+            outputs = model(*_model_inputs(batch, param.dtype, param.device),
+                            dropout_generator=dropout_generator)
     targets = _flatten_targets(batch, param.device)
     fw = batch.get("gt_temporal_mask")
     fw = None if fw is None else _to(fw, param.device, torch.float32).reshape(-1)
@@ -152,23 +154,26 @@ def make_train_step(model: torch.nn.Module, criterion: SetCriterion,
     extra = {"dropout_generator": dropout_generator} if dropout_generator is not None else {}
 
     def train_step(batch: Dict) -> Dict[str, torch.Tensor]:
-        was_training = model.training
-        model.train()
-        try:
-            losses = compute_losses(model, ranked, batch, generator, amp=amp, **extra)
-            loss = total_loss(losses, weight_dict)
-            optimizer.zero_grad()
-            loss.backward()
-            metrics = {"total_loss": loss.detach(), **{k: v.detach() for k, v in losses.items()}}
-            if world.size > 1:
-                distributed.all_sum_tensors_([p.grad for p in params if p.grad is not None],
-                                             world)
-                summed = world.all_sum_(torch.stack(list(metrics.values())))
-                metrics = dict(zip(metrics, summed.unbind()))
-            optimizer.step()
-        finally:
-            model.train(was_training)
-        return metrics
+        with profiling.step_span("combo.step"):
+            was_training = model.training
+            model.train()
+            try:
+                losses = compute_losses(model, ranked, batch, generator, amp=amp, **extra)
+                loss = total_loss(losses, weight_dict)
+                optimizer.zero_grad()
+                with profiling.span("combo.backward"):
+                    loss.backward()
+                metrics = {"total_loss": loss.detach(),
+                           **{k: v.detach() for k, v in losses.items()}}
+                if world.size > 1:
+                    distributed.all_sum_tensors_([p.grad for p in params if p.grad is not None],
+                                                 world)
+                    summed = world.all_sum_(torch.stack(list(metrics.values())))
+                    metrics = dict(zip(metrics, summed.unbind()))
+                optimizer.step()
+            finally:
+                model.train(was_training)
+            return metrics
 
     return train_step
 

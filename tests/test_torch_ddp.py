@@ -264,16 +264,30 @@ def test_train_net_and_pred_two_devices_on_cpu(ranks, monkeypatch):
 
 
 def test_profiling_on_the_cpu(tmp_path):
-    """`trace` writes a Chrome trace holding the profiled ops, and
-    `device_timer` times CPU tensors by perf_counter: positive seconds per
-    call."""
+    """`trace` writes a Chrome trace holding the profiled ops and each span
+    as a `combo_span` event, on the profiler's clock: a span's interval
+    encloses a `record_function` opened inside it to within 0.25 ms at each
+    end. `device_timer` times CPU tensors by perf_counter: positive seconds
+    per call."""
     x = torch.randn(64, 64)
     with profiling.trace(str(tmp_path)):
-        (x @ x).sum()
+        with profiling.span("combo.step"):
+            with torch.profiler.record_function("inner_step"):
+                (x @ x).sum()
+            with profiling.span("combo.forward"), \
+                    torch.profiler.record_function("inner_forward"):
+                (x @ x).sum()
     (path,) = tmp_path.iterdir()
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     assert any("matmul" in e.get("name", "") or "mm" in e.get("name", "") for e in events)
+    spans = {e["name"]: e for e in events if e.get("cat") == profiling.SPAN_CATEGORY}
+    marks = {e["name"]: e for e in events if e.get("name", "").startswith("inner_")}
+    assert set(spans) == {"combo.step", "combo.forward"} and len(marks) == 2
+    for name, mark in (("combo.step", "inner_step"), ("combo.forward", "inner_forward")):
+        s, m = spans[name], marks[mark]
+        assert s["ts"] <= m["ts"] + 250
+        assert s["ts"] + s["dur"] >= m["ts"] + m["dur"] - 250
     seconds = profiling.device_timer(lambda a: a @ a, x, iters=4, repeats=2)
     assert 0 < seconds < 10
 
