@@ -45,7 +45,11 @@ non-zero and never prints its last line:
        into its output, the gather warm and with its source flushed from
        L2); K1 and K7 also at the TTA branches' shapes (128^2 and 384^2
        frames: K1's grouped plan against global at 384^2 in bf16 and fp32,
-       and K7's pixel plan at 384^2, timed);
+       and K7's pixel plan at 384^2, timed); the matcher's fused cost kernel
+       (`csrc/match_cost.cu`) against its composition (`cost_matrix`, then
+       nan_to_num) at the training cells' shape and at AVSS's 12 slots and 72
+       classes, with its bound (bytes, fp32 operations or MUFU results) and
+       the composition's device and call ms;
      then each kernel ranked against its library call by device ms;
   3b. jpeg: the host JPEG codec built from `combo_avs_torch/native/jpeg.c`;
      synthetic frames at 224^2 and 1280 x 720 encoded at quality 95 and
@@ -198,12 +202,14 @@ TRAIN_M = TRAIN_N * TRAIN_K  # matched masks
 MASK_HW, GT_HW, NUM_POINTS, NUM_QUERIES = SIZE // 4, SIZE, 12544, 100
 DEC_OUTPUTS = 10  # the final prediction and 9 aux ones
 # kernel launches per training step: the 6 encoder layers once forward and
-# once backward; per decoder output the matcher samples the predicted (K5
-# shape) and the target masks, the criterion the 3x oversampled candidates,
-# the point labels and the point logits (5 forward calls), and the backward
-# takes the point logits' image gradient once; no point ever needs a gradient
-TRAIN_LAUNCHES = {"k1": 6, "k2": 6, "k3": 5 * DEC_OUTPUTS, "k4_dimg": DEC_OUTPUTS, "k4_dxy": 0,
-                  "k6": 0, "k7": 0}
+# once backward; per decoder output the matcher samples the target masks (K3)
+# and computes its cost in one fused kernel (float32 masks, the AMP step's
+# too: its outputs reach the criterion as float32), the criterion samples the
+# 3x oversampled candidates, the point labels and the point logits (4
+# point-sample forward calls, K5 none), and the backward takes the point
+# logits' image gradient once; no point ever needs a gradient
+TRAIN_LAUNCHES = {"k1": 6, "k2": 6, "k3": 4 * DEC_OUTPUTS, "k4_dimg": DEC_OUTPUTS, "k4_dxy": 0,
+                  "k6": 0, "k7": 0, "match_cost": DEC_OUTPUTS}
 # the K6 step: 12500 points give 37500 candidates, not a multiple of the
 # stratified chunk (256), so each decoder output takes top-k and K6
 FALLBACK_POINTS = 12500
@@ -406,6 +412,14 @@ REPLACES = {
     "k6": "combo_avs_tpu/ops/gather_pallas.py:49",
     "k7": "combo_avs_tpu/ops/seminf_pallas.py:67",
 }
+# the matcher's cost, fused (csrc/match_cost.cu), against its composition
+# (HungarianMatcher.cost_matrix, then nan_to_num): both sum the same fp32
+# terms over the points in another order and take exp, log1p and the
+# reciprocal through other code; costs lie in [0, about 12], so the kernel
+# is held to this share of the largest valid cost (tests/
+# test_torch_matchcost_card.py); invalid slots are BIG_COST on both sides
+MATCH_COST_RTOL = 3e-5
+MUFU_PER_SM_CLOCK = 16  # transcendental (MUFU) results an SM a clock on Hopper
 
 
 def log(*args):
@@ -427,11 +441,11 @@ def phase_env() -> str:
 
 
 def phase_build() -> None:
-    from combo_avs_torch.ops import (_build, deform_attn_cuda, gather_cuda, point_sample_cuda,
-                                     seminf_cuda)
+    from combo_avs_torch.ops import (_build, deform_attn_cuda, gather_cuda, match_cost_cuda,
+                                     point_sample_cuda, seminf_cuda)
 
     sources = [deform_attn_cuda.SOURCE, deform_attn_cuda.BWD_SOURCE, *point_sample_cuda.SOURCES,
-               seminf_cuda.SOURCE, gather_cuda.SOURCE]
+               seminf_cuda.SOURCE, gather_cuda.SOURCE, match_cost_cuda.SOURCE]
     t0 = time.perf_counter()
     _build.load_all(sources)
     dt = time.perf_counter() - t0
@@ -1121,6 +1135,119 @@ def phase_k6(dev: torch.device) -> dict:
     return result
 
 
+def matcher_inputs(N, Q, hw, P, K, C1, spread, device, seed):
+    """One decoder output's matcher arguments (points, pred_logits,
+    pred_masks, tgt_labels, tgt_masks, tgt_valid): mask logits of spread 4,
+    points uniform in [0, 1) as the criterion draws them ("uniform") or in
+    [-0.1, 1.1] with a quarter on the border and on pixel centres
+    ("border"), bool target masks of random blobs at 4x the mask size, about
+    a third of the slots invalid (the first of each frame valid)."""
+    rng = np.random.RandomState(seed)
+    h, w = hw
+    masks = (rng.randn(N, Q, h, w) * 4).astype(np.float32)
+    if spread == "uniform":
+        pts = rng.rand(N, P, 2).astype(np.float32)
+    else:
+        pts = rng.uniform(-0.1, 1.1, (N, P, 2)).astype(np.float32)
+        edge = rng.choice(np.array([0.0, 1.0, 0.5 / w, 1 - 0.5 / w], np.float32), (N, P, 2))
+        pts = np.where(rng.rand(N, P, 1) < 0.25, edge, pts)
+    tgt = (rng.rand(N, K, h, w) > 0.6).repeat(4, axis=2).repeat(4, axis=3)
+    labels = rng.randint(0, C1, (N, K))
+    valid = rng.rand(N, K) > 0.33
+    valid[:, 0] = True
+    logits = (rng.randn(N, Q, C1) * 2).astype(np.float32)
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    return to(pts), to(logits), to(masks), to(labels), to(tgt), to(valid)
+
+
+def compare_costs(tag: str, got: torch.Tensor, want: torch.Tensor, valid: torch.Tensor) -> dict:
+    """The matcher's costs against the composition's: BIG_COST exactly where
+    the composition has it (every invalid slot among them), every other cost
+    within MATCH_COST_RTOL of the largest; raises otherwise."""
+    from combo_avs_torch.losses.matcher import BIG_COST
+
+    torch.cuda.synchronize()
+    big = want == BIG_COST
+    if (got.shape != want.shape or got.dtype != want.dtype
+            or not torch.equal(got == BIG_COST, big)
+            or not big[(~valid)[:, None, :].expand_as(big)].all()):
+        raise AssertionError(f"{tag}: BIG_COST entries or shapes differ from the composition's")
+    scale = float(want[~big].abs().max())
+    max_abs = float((got[~big] - want[~big]).abs().max())
+    log(f"{tag}: {tuple(got.shape)} max_abs_err {max_abs:.3e} over the valid costs (max "
+        f"{scale:.4g}; tol {MATCH_COST_RTOL:g} of it), BIG_COST on {int(big.sum())} alike")
+    if not max_abs <= MATCH_COST_RTOL * scale:
+        raise AssertionError(f"{tag}: the kernel disagrees with the composition: {max_abs:.3e}")
+    return {"max_abs_err": max_abs, "max_rel_err": max_abs / scale}
+
+
+def phase_match_cost(dev: torch.device, smi: str) -> dict:
+    """The matcher's fused cost (csrc/match_cost.cu) against its composition
+    (HungarianMatcher.cost_matrix, then nan_to_num) at the training cells'
+    shape (40 frames x 100 queries x 56^2 masks, 12544 points, K = 3, 2
+    classes, invalid slots) and at AVSS's K = 12 and 72 classes: device ms, call
+    ms and host us of the kernel (the target masks' K3 sampling outside it),
+    its bound (bytes, fp32 operations or MUFU results, the largest), the
+    composition's device and call ms, and one decoder output's whole cost on
+    each side (the kernel's: the targets' copy, K3 and the kernel)."""
+    from combo_avs_torch.losses.matcher import BIG_COST, HungarianMatcher, _targets_nhwc
+    from combo_avs_torch.ops import match_cost_cuda as mc
+    from combo_avs_torch.ops.deform_attn_cuda import sm_count
+    from combo_avs_torch.ops.grid_sample import point_sample
+
+    matcher = HungarianMatcher()
+    weights = (matcher.cost_class, matcher.cost_mask, matcher.cost_dice)
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
+    out = {}
+    for name, (N, K, C1) in (("cells", (TRAIN_N, TRAIN_K, 2)), ("avss", (AVSS_N, AVSS_K, 72))):
+        Q, hw, P = NUM_QUERIES, (MASK_HW, MASK_HW), NUM_POINTS
+        args = matcher_inputs(N, Q, hw, P, K, C1, "uniform", dev, seed=90 + K)
+        points, logits, masks, labels, tgt, valid = args
+
+        def plain():
+            return torch.nan_to_num(matcher.cost_matrix(*args), nan=BIG_COST, posinf=BIG_COST,
+                                    neginf=-BIG_COST)
+
+        want = plain()
+        tgt_points = point_sample(_targets_nhwc(tgt), points)
+        plan = mc.launch_plan(N, Q, *hw, K)
+        fn = lambda: mc.match_cost_cuda(points, logits, masks, tgt_points, labels,  # noqa: E731
+                                        valid, weights)
+        err = compare_costs(f"[match_cost] {name}", fn(), want, valid)
+        t = timings(fn)
+        triples = N * Q * P
+        # fp32 operations a (frame, query, point): the bilinear FMAs (8),
+        # softplus both ways and the sigmoid around their transcendentals (8),
+        # per slot three FMAs and 1 - t (7 K), the sigmoid sum (1); MUFU: exp,
+        # log1p and the reciprocal
+        bd = bound(nbytes(masks, points, tgt_points, logits, labels, valid, want),
+                   triples * (17 + 7 * K))
+        mufu_ms = 3 * triples / (MUFU_PER_SM_CLOCK * sm_count(dev.index) * mhz * 1e6) * 1e3
+        if mufu_ms > bd["bound_ms"]:
+            bd.update(bound_ms=mufu_ms, bound_by="mufu")
+        log(f"[match_cost] {name}: masks [{N},{Q},{hw[0]},{hw[1]}] at {P} points, K = {K}, "
+            f"C+1 = {C1}, plan {plan}: {describe(t)}; bound {bd['bound_ms']:.4f} ms by "
+            f"{bd['bound_by']} ({bd['bound_ms'] / t['ms']:.0%} of it; MUFU at {mhz:.0f} MHz "
+            f"{mufu_ms:.4f} ms)")
+        t_plain = dict(zip(("ms", "device_source"), device_time_ms(plain)),
+                       call_ms=call_time_ms(plain))
+        path = lambda: matcher.solved_costs([args])[0]  # noqa: E731
+        compare_costs(f"[match_cost] {name} path", path(), want, valid)
+        t_path = dict(zip(("ms", "device_source"), device_time_ms(path)),
+                      call_ms=call_time_ms(path), host_us=host_us(path))
+        log(f"[match_cost] {name}: one decoder output's cost, device / call ms: composition "
+            f"{t_plain['ms']:.4f} / {t_plain['call_ms']:.4f}, kernel path (targets' copy, K3, "
+            f"kernel) {t_path['ms']:.4f} / {t_path['call_ms']:.4f} ({t_path['host_us']:.1f} us "
+            f"host) on {smi}")
+        out[name] = dict(err, plan=plan._asdict(), **t, **bd, mufu_ms=mufu_ms,
+                         plain_ms=t_plain["call_ms"], plain_device_ms=t_plain["ms"],
+                         path_ms=t_path["ms"], path_call_ms=t_path["call_ms"],
+                         path_host_us=t_path["host_us"])
+    return out
+
+
 def _batch(rng, dev):
     """uint8 frames and Maskige, fp32 log-mel, as the loader ships them."""
     return {
@@ -1153,7 +1280,8 @@ def train_batch(b, size, dev, seed):
 
 
 def reset_counts():
-    from combo_avs_torch.ops import deform_attn_cuda, gather_cuda, point_sample_cuda, seminf_cuda
+    from combo_avs_torch.ops import (deform_attn_cuda, gather_cuda, match_cost_cuda,
+                                     point_sample_cuda, seminf_cuda)
 
     deform_attn_cuda.launches = deform_attn_cuda.bwd_launches = 0
     deform_attn_cuda.fwd_plan_launches.update(dict.fromkeys(deform_attn_cuda.fwd_plan_launches, 0))
@@ -1164,17 +1292,18 @@ def reset_counts():
     point_sample_cuda.dxy_launches = 0
     point_sample_cuda.dimg_plan_launches.update(dict.fromkeys(point_sample_cuda.dimg_plan_launches,
                                                               0))
-    gather_cuda.launches = seminf_cuda.launches = 0
+    gather_cuda.launches = seminf_cuda.launches = match_cost_cuda.launches = 0
     seminf_cuda.plan_launches.update(dict.fromkeys(seminf_cuda.plan_launches, 0))
 
 
 def read_counts() -> dict:
-    from combo_avs_torch.ops import deform_attn_cuda, gather_cuda, point_sample_cuda, seminf_cuda
+    from combo_avs_torch.ops import (deform_attn_cuda, gather_cuda, match_cost_cuda,
+                                     point_sample_cuda, seminf_cuda)
 
     return {"k1": deform_attn_cuda.launches, "k2": deform_attn_cuda.bwd_launches,
             "k3": point_sample_cuda.fwd_launches, "k4_dimg": point_sample_cuda.dimg_launches,
             "k4_dxy": point_sample_cuda.dxy_launches, "k6": gather_cuda.launches,
-            "k7": seminf_cuda.launches}
+            "k7": seminf_cuda.launches, "match_cost": match_cost_cuda.launches}
 
 
 def phase_slice(model, smi: str, tag: str = "slice", profile: bool = False) -> dict:
@@ -1965,12 +2094,8 @@ class SharedMatching:
         return [self(*args) for args in layers]
 
     def __call__(self, *args):
-        from combo_avs_torch.losses.matcher import BIG_COST
-
         assign = self.matcher(*args)
-        # the cost the matcher solves: cost_matrix, then __call__'s nan_to_num
-        cost = torch.nan_to_num(self.matcher.cost_matrix(*args), nan=BIG_COST, posinf=BIG_COST,
-                                neginf=-BIG_COST).double().cpu()
+        cost = self.matcher.solved_costs([args])[0].double().cpu()  # the cost the matcher solves
         if self.replay is None:
             self.recorded.append((cost, assign))
             return assign
@@ -2285,8 +2410,9 @@ def phase_avss_train(smi: str, model, cfg) -> dict:
     1 warm-up and AVSS_STEPS - 1 timed steps, then one more with the matcher
     timed (synchronized around it): s/step, peak memory, the matcher's wall,
     finite losses, the weights still float32, and the launches per step by
-    plan and value type (K1 6, K2 6 bf16 level_slice, K3+K5 50, K4 dimg 10
-    staged, K4 dxy 0, K6 0, K7 0)."""
+    plan and value type (K1 6, K2 6 bf16 level_slice, K3 40 (K5 0), K4 dimg
+    10 staged, K4 dxy 0, K6 0, K7 0, the matcher's cost kernel 10: the AMP
+    outputs reach the matcher as float32)."""
     from combo_avs_torch.losses.criterion import build_criterion, build_weight_dict
     from combo_avs_torch.ops import deform_attn_cuda
     from combo_avs_torch.train.optim import build_optimizer
@@ -3225,6 +3351,7 @@ def main(argv=None) -> int:
     ps = phase_point_sample(dev)
     k7 = phase_k7(dev)
     k6 = phase_k6(dev)
+    mc = phase_match_cost(dev, smi)
     with_library = ([(s["name"], s) for s in ps["fwd"]]
                     + [("k4_dimg", ps["dimg"]), ("k4_dxy", ps["dxy"]), ("k6", k6)])
     if args.kernels_only:
@@ -3376,6 +3503,14 @@ def main(argv=None) -> int:
                      by_path("k6"), k6,
                      shape="src [120,37632,2] fp32, idx [120,9408] int64",
                      points_per_thread=k6["points_per_thread"], floors_ms=k6["floors"]),
+        kernel_entry("match_cost", "combo_avs_torch/csrc/match_cost.cu",
+                     REPLACES["k5"] + " fused with the matcher's cost sums", by_path("match_cost"),
+                     mc["cells"], shape=f"masks [{TRAIN_N},100,56,56] at 12544 points, K = 3",
+                     plan=mc["cells"]["plan"],
+                     **{f"{k}_avss": mc["avss"][k] for k in ("max_abs_err", "ms", "call_ms",
+                                                             "host_us", "bound_ms", "bound_by",
+                                                             "plain_ms", "plain_device_ms",
+                                                             "path_ms", "path_call_ms")}),
     ]
     log(json.dumps({"train": {"s_per_step": tr["s_per_step"], "step_times_s": tr["times"],
                               "max_memory_allocated": tr["peak_bytes"],

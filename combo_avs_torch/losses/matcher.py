@@ -12,12 +12,18 @@ K slots; an invalid slot costs `BIG_COST` against every query, and its
 assignment comes back as -1. The assignment is solved on the device
 (`ops.lsap`). Everything runs under `torch.no_grad()`: matching carries no
 gradient.
+
+On the card a call that `ops.match_cost_cuda.kernel_takes` (at most MAX_K
+slots, maps a block can stage) computes the cost in one hand-written kernel;
+every other call, and every CPU call, runs the plain composition
+`cost_matrix` (then `nan_to_num`), which is also the kernel's oracle.
 """
 
 from __future__ import annotations
 
 import torch
 
+from combo_avs_torch.ops import match_cost_cuda
 from combo_avs_torch.ops.grid_sample import point_sample
 from combo_avs_torch.ops.lsap import solve_lsap_batch
 from combo_avs_torch.utils import profiling
@@ -26,6 +32,15 @@ from combo_avs_torch.utils import profiling
 # 12 = 2 CE + 5 BCE + 5 dice), small enough for float32 sums to resolve real
 # cost gaps (the JAX package's value)
 BIG_COST = 1e4
+
+
+def _targets_nhwc(tgt_masks: torch.Tensor) -> torch.Tensor:
+    """[N, K, H, W] bool or float target masks -> [N, H, W, K] float32 (float64
+    stays float64), in one copy: the layout the point sampler reads."""
+    N, K, H, W = tgt_masks.shape
+    dtype = torch.promote_types(tgt_masks.dtype, torch.float32)
+    out = torch.empty((N, H, W, K), dtype=dtype, device=tgt_masks.device)
+    return out.copy_(tgt_masks.permute(0, 2, 3, 1))
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
@@ -67,14 +82,13 @@ class HungarianMatcher:
         tgt_masks [N, K, H, W] (bool or float), tgt_valid [N, K] -> [N, Q, K].
         Each frame's Q predicted masks (and K target masks) ride the channel
         axis of one point-sampling call."""
-        # the loader's bool masks become float32 (float64 stays float64)
-        tgt_masks = tgt_masks.to(torch.promote_types(tgt_masks.dtype, torch.float32))
         out_prob = pred_logits.softmax(-1)  # [N, Q, C+1]
         cost_class = -torch.gather(
             out_prob, 2, tgt_labels[:, None, :].long().expand(-1, out_prob.shape[1], -1))
         out_pts = point_sample(pred_masks.permute(0, 2, 3, 1).contiguous(), points)
         out_pts = out_pts.transpose(1, 2)  # [N, Q, P]
-        tgt_pts = point_sample(tgt_masks.permute(0, 2, 3, 1).contiguous(), points)
+        # the loader's bool masks become float32 (float64 stays float64)
+        tgt_pts = point_sample(_targets_nhwc(tgt_masks), points)
         tgt_pts = tgt_pts.transpose(1, 2).to(out_pts.dtype)  # [N, K, P]
         C = (self.cost_class * cost_class
              + self.cost_mask * batch_sigmoid_ce_cost(out_pts, tgt_pts)
@@ -89,6 +103,27 @@ class HungarianMatcher:
                                    tgt_valid)])[0]
 
     @torch.no_grad()
+    def solved_costs(self, layers):
+        """The [N, Q, K] cost matrix `match_layers` solves for each argument
+        tuple of `__call__` in `layers`: the kernel's where `kernel_takes`
+        the call, else `cost_matrix` with its nans and infinities replaced.
+        The kernel's calls share one float32 copy of target masks they share
+        (the decoder outputs are matched to the same targets)."""
+        costs, nhwc = [], (None, None)  # (target masks, their [N, H, W, K] copy)
+        for points, logits, masks, labels, tgt_masks, valid in layers:
+            if match_cost_cuda.kernel_takes(masks.device.type, masks.shape[-2:], labels.shape[-1]):
+                if nhwc[0] is not tgt_masks:
+                    nhwc = tgt_masks, _targets_nhwc(tgt_masks)
+                costs.append(match_cost_cuda.match_cost_cuda(
+                    points, logits, masks, point_sample(nhwc[1], points), labels, valid,
+                    (self.cost_class, self.cost_mask, self.cost_dice)))
+            else:
+                costs.append(torch.nan_to_num(
+                    self.cost_matrix(points, logits, masks, labels, tgt_masks, valid),
+                    nan=BIG_COST, posinf=BIG_COST, neginf=-BIG_COST))
+        return costs
+
+    @torch.no_grad()
     def match_layers(self, layers):
         """`__call__` for several decoder outputs at once: `layers` holds one
         argument tuple of `__call__` each, and the list of their assignments
@@ -97,8 +132,7 @@ class HungarianMatcher:
         a step, not once an output); each matrix is solved on its own, so
         the assignments are those of separate calls."""
         with profiling.span("combo.criterion.match_cost"):
-            costs = [torch.nan_to_num(self.cost_matrix(*args), nan=BIG_COST, posinf=BIG_COST,
-                                      neginf=-BIG_COST) for args in layers]
+            costs = self.solved_costs(layers)
         with profiling.span("combo.criterion.lsap"):
             # rows = target slots, columns = queries (K <= Q)
             assign = solve_lsap_batch(torch.cat(costs).transpose(1, 2))

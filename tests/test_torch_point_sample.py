@@ -352,7 +352,7 @@ def test_dimg_plan_args(shape):
 def c_signature(source: str, name: str) -> list:
     """The parameter types of `extern "C" int name(...)` in csrc/<source>, as
     ctypes types: a void pointer (the stream too) is c_void_p, an int c_int,
-    an int array POINTER(c_int)."""
+    an int array POINTER(c_int), a float c_float."""
     import ctypes
     import os
     import re
@@ -363,7 +363,8 @@ def c_signature(source: str, name: str) -> list:
         text = f.read()
     params = [p.strip() for p in
               re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", text).group(1).split(",")]
-    types = {"int": ctypes.c_int, "const int*": ctypes.POINTER(ctypes.c_int)}
+    types = {"int": ctypes.c_int, "const int*": ctypes.POINTER(ctypes.c_int),
+             "float": ctypes.c_float}
     return [ctypes.c_void_p if "void*" in p else types[p.rsplit(" ", 1)[0]] for p in params]
 
 
